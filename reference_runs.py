@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Reference figures for the port's chip-smoke slices.
+
+By default runs the JAX package's ``SlamManager`` (``ov2slam_tpu``) on the
+CPU over slice A and/or slice B of ``chip_smoke.py`` — same sequence, same
+config — and prints one JSON line per slice: ATE, endpoint error,
+keyframes, closures, resets. ``chip_smoke.py`` gates the port against
+these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
+``--device`` (``cpu`` by default, or ``cuda``) instead. ``--seeds`` runs
+once per value: the port's ``SlamManager(seed=...)``, which seeds its
+RANSAC generators, or for the JAX package its PRNG keys (manager s, loop
+closer s + 1000, front end s + 2000 and s + 3000) in place of its fixed
+ones. A seed given twice shows whether two runs agree to the last bit.
+
+    JAX_PLATFORMS=cpu python reference_runs.py A B
+    JAX_PLATFORMS=cpu python reference_runs.py A --seeds 1 2 3
+    python reference_runs.py --port A --seeds 1 2 3
+    python3 reference_runs.py --port --device cuda A --seeds 42 42 1 2 3
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+import time
+
+
+def run(slam, seq):
+    import numpy as np
+
+    t0 = time.perf_counter()
+    for i in range(len(seq.times)):
+        slam.process_frame(seq.images_left[i], seq.images_right[i],
+                           float(seq.times[i]))
+    wall = time.perf_counter() - t0
+    _, poses = slam.estimated_trajectory()
+    end = float(np.linalg.norm(poses[-1, 4:7] - seq.gt_poses[-1, 4:7]))
+    return poses, end, wall
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("slices", nargs="*", default=["A", "B"])
+    ap.add_argument("--port", action="store_true",
+                    help="run ov2slam_torch on the CPU instead of JAX")
+    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
+                    help="the port's device (with --port)")
+    ap.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="default: the port's seed 42, the JAX package's "
+                    "own keys")
+    args = ap.parse_args(argv)
+
+    import chip_smoke
+
+    if args.port:
+        from ov2slam_torch.io import synthetic
+        from ov2slam_torch.models.slam import SlamManager
+        from ov2slam_torch.utils import profiles
+        from ov2slam_torch.utils.evaluation import ate_rmse
+
+        def managers(cfg):
+            for s in args.seeds or [42]:
+                yield dict(seed=s), SlamManager(cfg, device=args.device,
+                                                seed=s)
+        package, backend = "ov2slam_torch", args.device
+    else:
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
+        from ov2slam_tpu.io import synthetic
+        from ov2slam_tpu.models.slam import SlamManager
+        from ov2slam_tpu.utils import profiles
+        from ov2slam_tpu.utils.evaluation import ate_rmse
+
+        def managers(cfg):
+            if args.seeds is None:
+                yield {}, SlamManager(cfg)
+            for s in args.seeds or []:
+                slam = SlamManager(cfg)
+                slam._rng = jax.random.PRNGKey(s)
+                slam.loop_closer._rng = jax.random.PRNGKey(s + 1000)
+                slam.frontend._rng = jax.random.PRNGKey(s + 2000)
+                slam.frontend._key_dev = jax.random.PRNGKey(s + 3000)
+                yield dict(seed=s), slam
+        package, backend = "ov2slam_tpu", "cpu"
+
+    for name in args.slices:
+        seq, cfg = chip_smoke.make_slice(name, synthetic, profiles)
+        for extra, slam in managers(cfg):
+            poses, end, wall = run(slam, seq)
+            ate = ate_rmse(poses, seq.gt_poses, align_scale=False)
+            print(json.dumps(dict(
+                slice=name, package=package, backend=backend, **extra,
+                width=seq.width, height=seq.height, frames=len(seq.times),
+                ate_m=ate, end_err_m=end,
+                trajectory_sha1=hashlib.sha1(
+                    poses.astype("<f8").tobytes()).hexdigest()[:16],
+                keyframes=int(slam.map._kf_seq_counter),
+                closures=slam.loop_closer.n_closures, resets=slam.n_resets,
+                wall_s=wall)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
