@@ -7,16 +7,20 @@ Phases (any failure exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
   2. build every hand-written kernel from ``ov2slam_torch/csrc`` (nvcc,
      sm_90a), in parallel;
-  3. hold each kernel against its plain PyTorch version on the card at the
-     shapes the main path gives it (atol 0), and time both;
+  3. hold each kernel against its plain PyTorch versions on the card at
+     the index capacities and on edge cases (atol 0), and time them; time
+     one compaction of slice B's index;
   4. slice A: the loop-closure test sequence (376x240, 160 frames) through
      ``SlamManager`` with the loop closer on — gates on closures, resets,
-     ATE and endpoint error, and on the scorer having run as the kernel;
+     ATE and endpoint error, and on the scorer having run as the kernel
+     (and never as a plain version on the card);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
      ``accurate`` profile and the default 2048-keyframe index — gates on
      ATE and resets, reports fps and the profiler's per-stage times.
-Then one JSON line of kernel records, the card's name and power limit, and
-the final ``{"ok": true, "device": ...}`` line.
+Then the scorer at each slice's main-path shapes (the populated prefix of
+the index, every M it took) against its plain versions and timed at the
+last, one JSON line of kernel records, the card's name and power limit,
+and the final ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
 fixed seeds.
@@ -113,10 +117,28 @@ def time_cuda(fn, runs: int):
     return times[len(times) // 2]
 
 
+def time_cuda_queued(fn, runs: int):
+    """Device ms per call of ``runs`` calls queued behind a sleep on the
+    card, so that the host's cost of launching them is hidden."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(1e8))
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(runs):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / runs
+
+
 def scorer_inputs(M, N, Nq, seed, dev, p_valid=0.9):
     """Random packed descriptors (int32 words) and valid masks; the query
     is one stored keyframe's rows with 6 bits flipped per row, so scores
-    are non-trivial."""
+    are non-trivial. Unpack with ``hamming.unpack_pm1`` for the kernel."""
     import numpy as np
     import torch
 
@@ -135,10 +157,10 @@ def scorer_inputs(M, N, Nq, seed, dev, p_valid=0.9):
 
 def scorer_bound(store_valid, q_valid, M, N, Nq):
     """Least time (ms) on an H100 for one scoring call, and what sets it:
-    the bytes floor (store 33 B/row, query 33 B/row, 4 B/score, each moved
-    once) or the int8 tensor-core floor for this data's valid pairs
-    (2·256 ops per pair)."""
-    n_bytes = M * N * 33 + Nq * 33 + M * 4
+    the bytes floor (the ±1 cube and the query, 256 + 1 B per row, and
+    4 B per score, each moved once) or the int8 tensor-core floor for this
+    data's valid pairs (2·256 ops per pair)."""
+    n_bytes = (M * N + Nq) * (256 + 1) + M * 4
     pairs = float(store_valid.sum().item()) * float(q_valid.sum().item())
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = 2.0 * pairs * 256 / INT8_OPS_PER_S
@@ -159,58 +181,165 @@ def slice_index_shape(name: str):
     return ((m + 15) // 16) * 16, 2 * cfg.max_kps
 
 
-def phase_kernels(dev):
+def scorer_equal(label, args, bits):
+    """The kernel (on ±1 operands, and through the packed ``match_scores``)
+    against the ±1 plain version and the packed XOR + popcount one, atol 0;
+    returns the kernel's scores and the largest difference seen."""
     import torch
 
     from ov2slam_torch.ops import hamming
 
+    store, sv, q, qv = args
+    sp, qp = hamming.unpack_pm1(store, sv), hamming.unpack_pm1(q, qv)
+    p = hamming.match_scores_plain(store, sv, q, qv, bits)
+    outs = [hamming.match_scores_bits(sp, sv, qp, qv, bits),
+            hamming.match_scores(store, sv, q, qv, bits),
+            hamming.match_scores_bits_plain(sp, sv, qp, qv, bits)]
+    torch.cuda.synchronize()
+    err = 0.0
+    for x in outs:
+        if x.shape != p.shape:
+            fail(f"hamming kernel != plain at {label} bits={bits}: shape")
+        if x.numel():
+            err = max(err, float((x - p).abs().max()))
+    if err != 0.0:
+        fail(f"hamming kernel != plain at {label} bits={bits}: {err}")
+    return outs[0], err
+
+
+def time_scorer(args, runs=20, plain_runs=3):
+    """At the packed inputs ``args``, match_bits 48: the kernel's median ms
+    per call (events around one call, the host's launch and the counters'
+    zeroing included), its device ms per call (calls queued behind a
+    sleep), the bound, and the ±1 plain version's median ms."""
+    from ov2slam_torch.ops import hamming
+
+    store, sv, q, qv = args
+    (M, N), Nq = sv.shape, qv.shape[0]
+    sp, qp = hamming.unpack_pm1(store, sv), hamming.unpack_pm1(q, qv)
+
+    def kernel():
+        return hamming.match_scores_bits(sp, sv, qp, qv, 48)
+
+    bound, bound_by = scorer_bound(sv, qv, M, N, Nq)
+    return dict(
+        shape=dict(M=M, N=N, Nq=Nq), ms=time_cuda(kernel, runs),
+        device_ms=time_cuda_queued(kernel, runs),
+        plain_ms=time_cuda(lambda: hamming.match_scores_bits_plain(
+            sp, sv, qp, qv, 48), plain_runs),
+        bound_ms=bound, bound_by=bound_by)
+
+
+def describe(row) -> str:
+    return (f"kernel {row['ms']:.4f} ms per call (median of 20), "
+            f"{row['device_ms']:.4f} ms on the device, plain "
+            f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+
+
+def phase_kernels(dev):
+    """Phase 3: the kernel at the index capacities and two more profiles'
+    shapes, then on edge cases; returns the timed rows and the largest
+    difference from the plain versions."""
+    import torch
+
     rows = []
-    max_err = 0.0
+    err = 0.0
     shapes = []
     for name, what in (("B", "accurate 752x480"), ("A", "376x240")):
         M, N = slice_index_shape(name)
-        shapes.append((f"slice {name} main path ({what}, max_kps {N // 2})",
-                       M, N, N))
+        shapes.append((f"slice {name} index capacity ({what}, max_kps "
+                       f"{N // 2})", M, N, N))
     shapes += [("accurate 752x480 at max_kps 384", 2048, 768, 768),
                ("average 752x480", 2048, 512, 512)]
     for label, M, N, Nq in shapes:
-        store, sv, q, qv = scorer_inputs(M, N, Nq, seed=M + N, dev=dev)
-        k = hamming.match_scores(store, sv, q, qv, 48)
-        p = hamming.match_scores_plain(store, sv, q, qv, 48)
-        torch.cuda.synchronize()
-        err = float((k - p).abs().max())
-        if err != 0.0:
-            fail(f"hamming kernel != plain at {label}: {err}")
-        max_err = max(max_err, err)
+        args = scorer_inputs(M, N, Nq, seed=M + N, dev=dev)
+        k, e = scorer_equal(label, args, 48)
+        err = max(err, e)
         if float(k.max()) <= 0.0:
             fail(f"hamming scores all zero at {label}")
-        ms = time_cuda(lambda: hamming.match_scores(store, sv, q, qv, 48), 20)
-        plain_ms = time_cuda(
-            lambda: hamming.match_scores_plain(store, sv, q, qv, 48), 3)
-        bound, bound_by = scorer_bound(sv, qv, M, N, Nq)
+        row = dict(label=label, **time_scorer(args))
         print(f"[kernels] hamming_score {label} M={M} N={N} Nq={Nq}: "
-              f"kernel {ms:.4f} ms (median of 20), plain {plain_ms:.3f} ms, "
-              f"bound {bound:.4f} ms", flush=True)
-        rows.append(dict(shape=(M, N, Nq), ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, bound_by=bound_by))
+              f"{describe(row)}", flush=True)
+        rows.append(row)
 
-    # edge cases: invalid stored rows, an all-invalid query, a keyframe
-    # with no valid row, match_bits 0/48/127, M not a multiple of 8
-    store, sv, q, qv = scorer_inputs(37, 96, 80, seed=11, dev=dev)
-    sv[5] = False
-    cases = [(store, sv, q, qv, b) for b in (0, 48, 127)]
-    cases.append((store, sv, q, torch.zeros_like(qv), 48))
-    cases.append((store[:0].contiguous(), sv[:0].contiguous(), q, qv, 48))
-    for s_, v_, q_, qv_, b in cases:
-        k = hamming.match_scores(s_, v_, q_, qv_, b)
-        p = hamming.match_scores_plain(s_, v_, q_, qv_, b)
-        torch.cuda.synchronize()
-        if k.shape != p.shape or (k.numel() and
-                                  float((k - p).abs().max()) != 0.0):
-            fail(f"hamming kernel != plain on edge case bits={b}")
-    print("[kernels] hamming_score edge cases: equal to plain (atol 0)",
-          flush=True)
-    return rows, max_err
+    # edge cases: invalid stored rows, an all-invalid keyframe, an
+    # all-invalid query, match_bits 0/48/127/128/256, M not a multiple of
+    # 8, N and Nq not multiples of the tiles (96 x 80, and 100 x 70, not
+    # multiples of 16 either), an empty store
+    for M, N, Nq in ((37, 96, 80), (37, 100, 70)):
+        store, sv, q, qv = scorer_inputs(M, N, Nq, seed=11, dev=dev)
+        sv[5] = False
+        label = f"edge M={M} N={N} Nq={Nq}"
+        for b in (0, 48, 127, 128, 256):
+            k, e = scorer_equal(label, (store, sv, q, qv), b)
+            err = max(err, e)
+            if float(k[5]) != 0.0:
+                fail(f"{label}: all-invalid keyframe scored {float(k[5])}")
+        for extra, a in (
+                (" all-invalid query", (store, sv, q, torch.zeros_like(qv))),
+                (" empty store", (store[:0].contiguous(),
+                                  sv[:0].contiguous(), q, qv))):
+            err = max(err, scorer_equal(label + extra, a, 48)[1])
+    print("[kernels] hamming_score edge cases: equal to both plain versions "
+          "(atol 0)", flush=True)
+    return rows, err
+
+
+def main_path_scorer(res, N, dev):
+    """The scorer at the shapes slice ``res`` gave it: its index's
+    populated prefix, M = 1 ... index_rows - lc_recent_mask keyframes of
+    N rows against N query rows. One set of inputs is built at the last M;
+    every prefix of it is held against both plain versions (match_bits 48,
+    and 0, 127, 256 at the last M), then the last one is timed."""
+    M = res["index_rows"] - res["lc_recent_mask"]
+    args = scorer_inputs(M, N, N, seed=3, dev=dev)
+    store, sv, q, qv = args
+    err = 0.0
+    label = f"slice {res['slice']} main path"
+    for m in range(1, M + 1):
+        err = max(err, scorer_equal(
+            f"{label} M={m}", (store[:m], sv[:m], q, qv), 48)[1])
+    for b in (0, 127, 256):
+        err = max(err, scorer_equal(f"{label} M={M}", args, b)[1])
+    row = time_scorer(args)
+    print(f"[kernels] hamming_score {label}, M = 1..{M} equal to both "
+          f"plain versions (atol 0); last query M={M} N={N} Nq={N}: "
+          f"{describe(row)}", flush=True)
+    return row, err
+
+
+def time_compaction(dev, capacity=2048, N=1024):
+    """ms of the one ``PlaceIndex.add`` that compacts a full index of slice
+    B's capacity (the kept seven eighths rewritten, the rest zeroed), and of
+    one rewrite of every row of its cube, for comparison."""
+    import numpy as np
+
+    from ov2slam_torch.device import synchronize
+    from ov2slam_torch.loopclosure.index import PlaceIndex
+
+    rng = np.random.default_rng(5)
+    desc = rng.integers(0, 2**32, (capacity + 1, N, 8), dtype=np.uint32)
+    valid = rng.random((capacity + 1, N)) < 0.9
+    ix = PlaceIndex(capacity, device=dev)
+    for i in range(capacity):
+        ix.add(i, desc[i], valid[i])
+    synchronize(dev)
+    t0 = time.perf_counter()
+    for c0 in range(0, ix.capacity, 64):
+        ix._write_rows(slice(c0, c0 + 64))
+    synchronize(dev)
+    t_full = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ix.add(capacity, desc[capacity], valid[capacity])
+    synchronize(dev)
+    t_compact = time.perf_counter() - t0
+    kept = len(ix.kf_ids)
+    print(f"[index] compaction at capacity {capacity} x {N}: "
+          f"{1e3 * t_compact:.3f} ms for the add that compacts ({kept} rows "
+          f"kept); every row rewritten: {1e3 * t_full:.3f} ms", flush=True)
+    return dict(compact_ms=1e3 * t_compact, full_rewrite_ms=1e3 * t_full,
+                rows_kept=kept)
 
 
 def run_slice(name: str, dev):
@@ -231,7 +360,8 @@ def run_slice(name: str, dev):
     prof = Profiler.instance()
     prof.reset()
     # counts cover exactly this slice's run of the main path
-    hamming.match_scores.launches = 0
+    hamming.match_scores_bits.launches = 0
+    hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
     synchronize(dev)
     t0 = time.perf_counter()
@@ -240,8 +370,9 @@ def run_slice(name: str, dev):
                            float(seq.times[i]))
     synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = hamming.match_scores.launches
-    plain_cuda = hamming.match_scores_plain.cuda_runs
+    launches = hamming.match_scores_bits.launches
+    plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
+                  + hamming.match_scores_plain.cuda_runs)
     _, poses = slam.estimated_trajectory()
     if poses.shape != seq.gt_poses.shape or not np.isfinite(poses).all():
         fail(f"slice {name}: trajectory not finite / wrong shape")
@@ -255,7 +386,8 @@ def run_slice(name: str, dev):
                resets=slam.n_resets, scorer_launches=launches,
                scorer_plain_runs_on_cuda=plain_cuda,
                index_rows=len(slam.loop_closer.index.kf_ids),
-               max_kps=cfg.max_kps)
+               lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
+               index_cube_bytes=slam.loop_closer.index._cube.numel())
     print(f"[slice {name}] " + json.dumps(res), flush=True)
     print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
           flush=True)
@@ -283,7 +415,6 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from ov2slam_torch import kernels
     from ov2slam_torch.device import resolve_device
-    from ov2slam_torch.ops import hamming
 
     dev = resolve_device(None)
     smi = nvidia_smi_line()
@@ -293,8 +424,13 @@ def main() -> int:
     build_s = kernels.build_all()
     print(f"[build] kernels {list(kernels.KERNELS)} built in "
           f"{build_s:.2f} s", flush=True)
+    for name, log in kernels.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
     rows, max_err = phase_kernels(dev)
+    compaction = time_compaction(dev)
 
     a = run_slice("A", dev)
     if a["closures"] < 1:
@@ -310,22 +446,24 @@ def main() -> int:
     if not b["ate_m"] <= gate_b:
         fail(f"slice B: ATE {b['ate_m']:.4f} m > {gate_b:.4f}")
 
-    # rows[0] and rows[1] are slices B and A at their own index shapes;
-    # the record's top-level figures are slice B's
-    shape_keys = ("M", "N", "Nq")
-    paths = [dict(slice=res["slice"], launches=res["scorer_launches"],
-                  shape=dict(zip(shape_keys, row["shape"])),
-                  ms=row["ms"], plain_ms=row["plain_ms"],
-                  bound_ms=row["bound_ms"], bound_by=row["bound_by"])
-             for res, row in ((b, rows[0]), (a, rows[1]))]
+    # each path's figures are at its last main-path query; the record's
+    # top-level ones are slice B's; phase 3's shapes follow in `phase3`
+    paths = []
+    for res, cap in ((b, rows[0]), (a, rows[1])):
+        main, err = main_path_scorer(res, cap["shape"]["N"], dev)
+        max_err = max(max_err, err)
+        paths.append(dict(slice=res["slice"],
+                          launches=res["scorer_launches"], **main,
+                          index_cube_bytes=res["index_cube_bytes"]))
+    top = {k: paths[0][k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "shape")}
     kernels_line = {"kernels": [dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
         launches=b["scorer_launches"], max_abs_err=max_err,
-        ms=rows[0]["ms"], plain_ms=rows[0]["plain_ms"],
-        bound_ms=rows[0]["bound_ms"], bound_by=rows[0]["bound_by"],
-        library_ms=None, shape=paths[0]["shape"], paths=paths)]}
+        library_ms=None, **top, paths=paths, phase3=rows,
+        index_compaction=compaction)]}
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,17 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/ov2slam_torch/lib<name>.so`` — a shared library with a plain C
 interface, loaded with ``ctypes`` — at first use, or ahead of time with
 :func:`build_all` (one ``nvcc`` process per source, all started together).
-A library newer than its source is reused. Nothing here runs at import.
+A library newer than its source and than every ``csrc`` header the source
+includes is reused. ptxas's resource report (registers, shared memory,
+spills) of each build is kept in :data:`BUILD_LOG`. Nothing here runs at
+import.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,10 +27,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_REPO, "build", "ov2slam_torch")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}   # nvcc's output of each build, by kernel
 
 _C = ctypes
 # C signatures of the exported launch functions
@@ -34,7 +39,7 @@ _SIGNATURES = {
     "hamming_score": ("hamming_score_launch", _C.c_int,
                       [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
                        _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-                       _C.c_void_p, _C.c_void_p]),
+                       _C.c_void_p, _C.c_void_p, _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
 
@@ -54,10 +59,29 @@ def _paths(name: str):
             os.path.join(BUILD_DIR, f"lib{name}.so"))
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _headers(path: str, seen=None) -> set:
+    """The ``csrc`` headers that ``path`` includes, directly or through
+    another such header."""
+    seen = set() if seen is None else seen
+    with open(path) as f:
+        text = f.read()
+    for inc in _INCLUDE.findall(text):
+        h = os.path.join(CSRC, inc)
+        if os.path.exists(h) and h not in seen:
+            seen.add(h)
+            _headers(h, seen)
+    return seen
+
+
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(lib) < os.path.getmtime(src))
+    if not os.path.exists(lib):
+        return True
+    newest = max(os.path.getmtime(p) for p in (src, *_headers(src)))
+    return os.path.getmtime(lib) < newest
 
 
 def _start(name: str):
@@ -78,6 +102,7 @@ def build_all(names: Iterable[str] = KERNELS) -> float:
         errors = []
         for name, proc, tmp, lib in jobs:
             out, _ = proc.communicate()
+            BUILD_LOG[name] = out
             if proc.returncode != 0:
                 errors.append(f"{name}: nvcc exit {proc.returncode}\n{out}")
             else:

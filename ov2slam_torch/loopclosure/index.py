@@ -6,13 +6,16 @@ descriptor match counts — no tree, no approximation.
 
 Score(query, KF) = fraction of query descriptors whose best Hamming
 distance into the KF's descriptor set is at most ``match_bits``
-(:func:`ov2slam_torch.ops.hamming.match_scores`: the CUDA kernel on a GPU,
-its plain version on the CPU).
+(:func:`ov2slam_torch.ops.hamming.match_scores_bits`: the CUDA kernel on a
+GPU, its plain version on the CPU).
 
-The store is one device tensor of shape (capacity, N, 8) int32 whose rows
-are written in place as keyframes are added; a host copy backs
-compaction. Temporal-consistency grouping ("islands") and the recent-frame
-mask are host logic.
+The store on the device is a ±1 cube, (capacity, N, 256) int8 (+1 or -1
+per descriptor bit, 0 for invalid rows; 512 MiB at 2048 keyframes of 1024
+descriptors), as the JAX package keeps it for its TPU kernel. ``add``
+writes one row in place; compaction rewrites the kept rows from the packed
+host copy and zeroes the rest. A query scores only the populated prefix of the cube. The same code
+runs on every device. Temporal-consistency grouping ("islands") and the
+recent-frame mask are host logic.
 """
 
 from __future__ import annotations
@@ -23,9 +26,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.hamming import match_scores
+from ..ops.hamming import match_scores_bits, unpack_pm1
 
 _CHUNK = 16
+_UNPACK_ROWS = 64   # keyframes unpacked at once when the cube is rewritten
 
 
 class PlaceIndex:
@@ -43,9 +47,9 @@ class PlaceIndex:
         self.match_bits = match_bits
         self._desc: Optional[np.ndarray] = None   # (cap, N, 8) uint32
         self._valid: Optional[np.ndarray] = None  # (cap, N)
-        # the store on the device: (cap, N, 8) int32 words, rows written
-        # in place by `add`, rewritten whole by `_compact`
-        self._dev_desc: Optional[torch.Tensor] = None
+        # the store on the device: (cap, N, 256) int8 ±1 cube, rows
+        # written in place by `add`, the kept prefix rewritten by `_compact`
+        self._cube: Optional[torch.Tensor] = None
         self._dev_valid: Optional[torch.Tensor] = None
         self.kf_ids: List[int] = []
         # insertion seq of each entry's KF: map slot ids are recycled, so
@@ -59,9 +63,8 @@ class PlaceIndex:
             N = desc.shape[0]
             self._desc = np.zeros((self.capacity, N, 8), np.uint32)
             self._valid = np.zeros((self.capacity, N), bool)
-            self._dev_desc = torch.zeros((self.capacity, N, 8),
-                                         dtype=torch.int32,
-                                         device=self.device)
+            self._cube = torch.zeros((self.capacity, N, 256),
+                                     dtype=torch.int8, device=self.device)
             self._dev_valid = torch.zeros((self.capacity, N),
                                           dtype=torch.bool,
                                           device=self.device)
@@ -70,8 +73,7 @@ class PlaceIndex:
         i = len(self.kf_ids)
         self._desc[i] = desc
         self._valid[i] = valid
-        self._dev_desc[i] = self._to_dev(self._desc[i].view(np.int32))
-        self._dev_valid[i] = self._to_dev(self._valid[i])
+        self._write_rows(slice(i, i + 1))
         self.kf_ids.append(kfid)
         self.kf_seqs.append(-1 if seq is None else int(seq))
 
@@ -97,9 +99,19 @@ class PlaceIndex:
         self._valid[m:] = False
         self.kf_ids = [self.kf_ids[j] for j in idx]
         self.kf_seqs = [self.kf_seqs[j] for j in idx]
-        self._dev_desc.copy_(self._to_dev(self._desc.view(np.int32)))
-        self._dev_valid.copy_(self._to_dev(self._valid))
+        for c0 in range(0, m, _UNPACK_ROWS):
+            self._write_rows(slice(c0, min(c0 + _UNPACK_ROWS, m)))
+        self._cube[m:] = 0
+        self._dev_valid[m:] = False
         self._last_candidate = None
+
+    def _write_rows(self, rows: slice):
+        """Copy host rows ``rows`` to the device: flags, and the ±1 cube
+        unpacked on the device from the packed words."""
+        valid = self._to_dev(self._valid[rows])
+        self._dev_valid[rows] = valid
+        self._cube[rows] = unpack_pm1(
+            self._to_dev(self._desc[rows].view(np.int32)), valid)
 
     def _to_dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
@@ -117,13 +129,15 @@ class PlaceIndex:
 
     def _raw_scores(self, desc: np.ndarray, valid: np.ndarray,
                     usable: int) -> np.ndarray:
-        """Scores of all stored rows (the kernel on a GPU), then the first
-        ``usable``."""
-        q = self._to_dev(np.asarray(desc, np.uint32).view(np.int32))
+        """Scores of the first ``usable`` stored rows (the kernel on a
+        GPU): the populated prefix of the cube, contiguous."""
         qv = self._to_dev(np.asarray(valid, bool))
-        scores = match_scores(self._dev_desc, self._dev_valid, q, qv,
-                              self.match_bits)
-        return scores[:usable].cpu().numpy()
+        q = unpack_pm1(
+            self._to_dev(np.asarray(desc, np.uint32).view(np.int32)), qv)
+        scores = match_scores_bits(self._cube[:usable],
+                                   self._dev_valid[:usable], q, qv,
+                                   self.match_bits)
+        return scores.cpu().numpy()
 
     def query(self, desc: np.ndarray, valid: np.ndarray,
               exclude: Optional[set] = None,

@@ -124,12 +124,47 @@ def test_cuda_kernel_wrapper_refuses_cpu_fallback():
     # plain version, counted separately from kernel launches
     from ov2slam_torch.ops import hamming
 
-    n0 = hamming.match_scores.launches
+    n0 = hamming.match_scores_bits.launches
     s = torch.zeros((3, 4, 8), dtype=torch.int32)
     v = torch.ones((3, 4), dtype=torch.bool)
     out = hamming.match_scores(s, v, s[0], v[0], 48)
     assert out.tolist() == [1.0, 1.0, 1.0]
-    assert hamming.match_scores.launches == n0
+    pm1 = hamming.unpack_pm1(s, v)
+    out = hamming.match_scores_bits(pm1, v, pm1[0], v[0], 48)
+    assert out.tolist() == [1.0, 1.0, 1.0]
+    assert hamming.match_scores_bits.launches == n0
     with pytest.raises(ValueError):
         hamming.match_scores(s.to("meta"), v.to("meta"), s[0].to("meta"),
                              v[0].to("meta"), 48)
+    with pytest.raises(ValueError):
+        hamming.match_scores_bits(pm1.to("meta"), v.to("meta"),
+                                  pm1[0].to("meta"), v[0].to("meta"), 48)
+
+
+def test_kernel_library_rebuilt_when_an_included_header_changes(
+        tmp_path, monkeypatch):
+    # a library is stale when its .cu or any csrc header it includes,
+    # directly or through another header, is newer; other headers and
+    # system includes do not count
+    from ov2slam_torch import kernels
+
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    (csrc / "k.cu").write_text('#include <cuda.h>\n#include "a.cuh"\n')
+    (csrc / "a.cuh").write_text('#pragma once\n  #include "b.cuh"\n')
+    (csrc / "b.cuh").write_text("#pragma once\n")
+    (csrc / "other.cuh").write_text("#pragma once\n")
+    monkeypatch.setattr(kernels, "CSRC", str(csrc))
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(build))
+    assert kernels._stale("k")                      # nothing built yet
+    lib = build / "libk.so"
+    lib.write_bytes(b"")
+    for p in csrc.iterdir():
+        os.utime(p, (1000, 1000))
+    os.utime(lib, (2000, 2000))
+    assert not kernels._stale("k")
+    os.utime(csrc / "other.cuh", (3000, 3000))
+    assert not kernels._stale("k")
+    os.utime(csrc / "b.cuh", (3000, 3000))
+    assert kernels._stale("k")
