@@ -16,11 +16,19 @@ Phases (any failure exits non-zero):
      (and never as a plain version on the card);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
      ``accurate`` profile and the default 2048-keyframe index — gates on
-     ATE and resets, reports fps and the profiler's per-stage times.
-Then the scorer at each slice's main-path shapes (the populated prefix of
-the index, every M it took) against its plain versions and timed at the
-last, one JSON line of kernel records, the card's name and power limit,
-and the final ``{"ok": true, "device": ...}`` line.
+     ATE and resets, reports fps and the profiler's per-stage times;
+  6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
+     BA, results written — gates on mono initialization, post-init frames,
+     scale-aligned ATE, resets and the result files;
+  7. slice D: stereo relocalization at 752x480 (the blackout script of
+     test_relocalization.py), xyz local BA, image rectification, full BA —
+     gates on the blackout, the relocalization and the last frame.
+Then the scorer at each slice's main-path shapes (for A and B the
+populated prefix of the index, every M it took; for C and D every
+(M, N, Nq) the slice launched, on the loop-closure and the relocalizer
+path) against its plain versions and timed at the last, one JSON line of
+kernel records, the card's name and power limit, and the final
+``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
 fixed seeds.
@@ -46,6 +54,19 @@ JAX_SLICE_B_ATE = 0.007888328449902924
 # slice A gates: test_slam_e2e.py::test_loop_closure_on_circular_trajectory
 SLICE_A_MAX_ATE = 0.09
 SLICE_A_MAX_END_ERR = 0.07
+# slices C and D: the tests' own gates (test_slam_e2e.py::
+# test_mono_slam_synthetic, test_relocalization.py::
+# test_pipeline_relocalizes_after_blackout), or 1.25 x the JAX package's
+# figure on the same slice (reference_runs.py C D, CPU), whichever is larger
+JAX_SLICE_C = dict(ate_m=0.011796831972796903, resets=0,
+                   fullba_ate_m=0.01188151691832944)
+JAX_SLICE_D = dict(reloc_trans_m=0.0359222946076875,
+                   reloc_rot_rad=0.033375023721423654,
+                   last_err_m=0.052543958350458615,
+                   fullba_ate_m=0.001670157967045391)
+RESULT_FILES = ("ov2slam_traj.txt", "ov2slam_kfs_traj.txt",
+                "ov2slam_traj_kitti.txt", "ov2slam_fullba_kfs_traj.txt",
+                "ov2slam_full_traj_wlc.txt", "ov2slam_full_traj_wlc_opt.txt")
 
 
 def fail(msg: str) -> None:
@@ -66,7 +87,20 @@ def slice_configs():
     b = (dict(base, width=752, height=480),
          dict(use_relocalizer=False, lc_recent_mask=10),
          "accurate")
-    return {"A": a, "B": b}
+    # the accurate profile turns the loop closer on, and with it the
+    # relocalizer (the config's default), paced by no wall clock here.
+    # Slice C's sequence makes 12 keyframes: with the default recency mask
+    # of 30 the loop-closure query would never score one
+    c = (dict(n_frames=120, stereo=False, width=752, height=480,
+              n_points=4000, seed=4, speed=0.08),
+         dict(reloc_min_interval_s=0.0, do_full_ba=True, lc_recent_mask=6),
+         "accurate")
+    d = (dict(n_frames=40, stereo=True, width=752, height=480,
+              n_points=4000, seed=12, speed=0.05),
+         dict(reloc_min_interval_s=0.0, use_inv_depth=False,
+              do_stereo_rect=True, do_full_ba=True),
+         "accurate")
+    return {"A": a, "B": b, "C": c, "D": d}
 
 
 def slice_config(name: str, seq, profiles_module):
@@ -86,6 +120,104 @@ def make_slice(name: str, synthetic_module, profiles_module):
     """Render slice ``name`` and build its config with the given modules."""
     seq = synthetic_module.generate_sequence(**slice_configs()[name][0])
     return seq, slice_config(name, seq, profiles_module)
+
+
+def slice_frames(name: str, seq):
+    """The frames slice ``name`` feeds, in order, as (left, right or None,
+    time, ground-truth index or None). Slice D is the blackout script of
+    test_relocalization.py::test_pipeline_relocalizes_after_blackout: 25
+    frames, 3 blank frames, the revisit of frame 20, frames 21-29."""
+    import numpy as np
+
+    def frame(i, t):
+        right = seq.images_right[i] if seq.images_right is not None else None
+        return seq.images_left[i], right, t, i
+
+    if name != "D":
+        return [frame(i, float(seq.times[i])) for i in range(len(seq.times))]
+    t25 = float(seq.times[25])
+    blank = np.zeros((seq.height, seq.width), np.float32)
+    return ([frame(i, float(seq.times[i])) for i in range(25)]
+            + [(blank, blank, t25 + 0.01 * j, None) for j in range(3)]
+            + [frame(20, t25 + 0.05)]
+            + [frame(i, t25 + 0.05 * (i - 19)) for i in range(21, 30)])
+
+
+def drive_slice(name: str, slam, seq):
+    """Feed slice ``name`` to ``slam`` (either package's SlamManager);
+    returns the keyframe and relocalization counts after each frame."""
+    n_kfs, n_relocs = [], []
+    for left, right, t, _ in slice_frames(name, seq):
+        slam.process_frame(left, right, t)
+        n_kfs.append(int(slam.map.n_keyframes))
+        n_relocs.append(slam.relocalizer.n_relocs
+                        if slam.relocalizer is not None else 0)
+    return dict(n_kfs=n_kfs, n_relocs=n_relocs)
+
+
+def slice_outcome(name: str, slam, seq, trace, ate_rmse, lie_np,
+                  out_dir=None):
+    """The figures slice ``name`` is gated on, from ``drive_slice``'s trace
+    and, for slices C and D, the result files ``write_results`` put in
+    ``out_dir``; ``ate_rmse`` and ``lie_np`` come from the package that
+    ran."""
+    import numpy as np
+
+    poses = slam.estimated_trajectory()[1].astype(np.float64)
+    res = dict(keyframes=int(slam.map._kf_seq_counter),
+               resets=int(slam.n_resets))
+    if slam.loop_closer is not None:
+        res["closures"] = slam.loop_closer.n_closures
+    if slam.relocalizer is not None:
+        res["n_relocs"] = slam.relocalizer.n_relocs
+    if name in ("A", "B"):
+        res["ate_m"] = ate_rmse(poses, seq.gt_poses, align_scale=False)
+        res["end_err_m"] = float(np.linalg.norm(poses[-1, 4:7]
+                                                - seq.gt_poses[-1, 4:7]))
+    elif name == "C":
+        # pre-init frames sit at the origin; the initialized segment is
+        # evaluated with scale alignment (test_mono_slam_synthetic)
+        move = np.nonzero(np.linalg.norm(poses[:, 4:7], axis=1) > 1e-6)[0]
+        res["initialized"] = bool(slam.frontend.initialized)
+        res["post_init_frames"] = int(len(move))
+        res["init_frame"] = int(move[0]) if len(move) else -1
+        res["ate_m"] = (ate_rmse(poses[move[0]:], seq.gt_poses[move[0]:],
+                                 align_scale=True)
+                        if len(move) >= 3 else float("inf"))
+    else:
+        frames = slice_frames(name, seq)
+        revisit = next(k for k, f in enumerate(frames)
+                       if f[3] is None) + 3
+        res["kfs_added_in_blackout"] = (trace["n_kfs"][revisit - 1]
+                                        - trace["n_kfs"][revisit - 4])
+        res["relocs_at_revisit"] = trace["n_relocs"][revisit]
+        rot, tr = lie_np.pose_distance(poses[revisit],
+                                       seq.gt_poses[20].astype(np.float64))
+        res["reloc_trans_m"], res["reloc_rot_rad"] = float(tr), float(rot)
+        res["last_err_m"] = float(np.linalg.norm(poses[-1, 4:7]
+                                                 - seq.gt_poses[29, 4:7]))
+    if out_dir is not None:
+        import os
+
+        res["result_files"] = sorted(f for f in RESULT_FILES if os.path.exists(
+            os.path.join(out_dir, f)))
+        kfs = os.path.join(out_dir, "ov2slam_fullba_kfs_traj.txt")
+        if os.path.exists(kfs):
+            # the full-BA keyframe trajectory against the truth of the frame
+            # fed at each keyframe's time (slice D re-times its frames;
+            # scale-aligned for mono)
+            tum = np.loadtxt(kfs, ndmin=2)
+            frames = slice_frames(name, seq)
+            fed_t = np.array([f[2] for f in frames])
+            idx = [frames[int(np.argmin(np.abs(fed_t - t)))][3]
+                   for t in tum[:, 0]]
+            if any(i is None for i in idx):
+                fail(f"slice {name}: a full-BA keyframe on a blank frame")
+            est = np.zeros((len(tum), 7))
+            est[:, 4:7] = tum[:, 1:4]
+            res["fullba_ate_m"] = ate_rmse(est, seq.gt_poses[idx],
+                                           align_scale=not seq.stereo)
+    return res
 
 
 def nvidia_smi_line() -> str:
@@ -343,13 +475,15 @@ def time_compaction(dev, capacity=2048, N=1024):
 
 
 def run_slice(name: str, dev):
+    import tempfile
+
     import numpy as np
 
     from ov2slam_torch.device import synchronize
     from ov2slam_torch.io import synthetic
     from ov2slam_torch.models.slam import SlamManager
     from ov2slam_torch.ops import hamming
-    from ov2slam_torch.utils import profiles
+    from ov2slam_torch.utils import lie_np, profiles
     from ov2slam_torch.utils.evaluation import ate_rmse
     from ov2slam_torch.utils.profiler import Profiler
 
@@ -361,29 +495,37 @@ def run_slice(name: str, dev):
     prof.reset()
     # counts cover exactly this slice's run of the main path
     hamming.match_scores_bits.launches = 0
+    hamming.match_scores_bits.shapes.clear()
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
     synchronize(dev)
     t0 = time.perf_counter()
-    for i in range(len(seq.times)):
-        slam.process_frame(seq.images_left[i], seq.images_right[i],
-                           float(seq.times[i]))
+    trace = drive_slice(name, slam, seq)
     synchronize(dev)
     wall = time.perf_counter() - t0
     launches = hamming.match_scores_bits.launches
+    shapes = dict(hamming.match_scores_bits.shapes)
     plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
                   + hamming.match_scores_plain.cuda_runs)
+    n_frames = len(trace["n_kfs"])
     _, poses = slam.estimated_trajectory()
-    if poses.shape != seq.gt_poses.shape or not np.isfinite(poses).all():
+    if poses.shape != (n_frames, 7) or not np.isfinite(poses).all():
         fail(f"slice {name}: trajectory not finite / wrong shape")
-    ate = ate_rmse(poses, seq.gt_poses, align_scale=False)
-    end_err = float(np.linalg.norm(poses[-1, 4:7] - seq.gt_poses[-1, 4:7]))
-    res = dict(slice=name, width=seq.width, height=seq.height,
-               frames=len(seq.times), render_s=round(t_render, 3),
-               wall_s=wall, fps=len(seq.times) / wall, ate_m=ate,
-               end_err_m=end_err, keyframes=int(slam.map._kf_seq_counter),
-               closures=slam.loop_closer.n_closures,
-               resets=slam.n_resets, scorer_launches=launches,
+    out_dir, t_write = None, None
+    with tempfile.TemporaryDirectory() as tmp:
+        if name in ("C", "D"):
+            out_dir = tmp
+            t0 = time.perf_counter()
+            slam.write_results(tmp)
+            synchronize(dev)
+            t_write = time.perf_counter() - t0
+        res = dict(slice=name, width=seq.width, height=seq.height,
+                   frames=n_frames, render_s=round(t_render, 3),
+                   wall_s=wall, fps=n_frames / wall,
+                   **slice_outcome(name, slam, seq, trace, ate_rmse, lie_np,
+                                   out_dir))
+    res.update(write_results_s=t_write, scorer_launches=launches,
+               scorer_shapes=[[*k, v] for k, v in sorted(shapes.items())],
                scorer_plain_runs_on_cuda=plain_cuda,
                index_rows=len(slam.loop_closer.index.kf_ids),
                lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
@@ -395,9 +537,82 @@ def run_slice(name: str, dev):
         fail(f"slice {name}: the scorer kernel never launched")
     if plain_cuda != 0:
         fail(f"slice {name}: the plain scorer ran on cuda")
-    if slam.n_resets != 0:
+    if name in ("A", "B") and slam.n_resets != 0:
         fail(f"slice {name}: {slam.n_resets} tracking resets")
     return res
+
+
+def gate(name: str, what: str, value, limit) -> None:
+    """Fail unless ``value`` <= ``limit``."""
+    if not value <= limit:
+        fail(f"slice {name}: {what} {value} > {limit}")
+
+
+def gate_slice_c(c) -> None:
+    """test_mono_slam_synthetic's gates, or 1.25 x the JAX package's."""
+    if not c["initialized"]:
+        fail("slice C: mono initialization never fired")
+    if c["post_init_frames"] < 15:
+        fail(f"slice C: {c['post_init_frames']} post-init frames < 15")
+    gate("C", "post-init ATE (m, scale-aligned)", c["ate_m"],
+         max(0.08, 1.25 * JAX_SLICE_C["ate_m"]))
+    gate("C", "resets", c["resets"], JAX_SLICE_C["resets"])
+    if c["result_files"] != sorted(RESULT_FILES):
+        fail(f"slice C: result files {c['result_files']}")
+    print(f"[slice C] full-BA keyframe ATE {c['fullba_ate_m']} m "
+          f"(JAX package {JAX_SLICE_C['fullba_ate_m']} m)", flush=True)
+
+
+def gate_slice_d(d) -> None:
+    """test_pipeline_relocalizes_after_blackout's gates, or 1.25 x the JAX
+    package's figures."""
+    if d["kfs_added_in_blackout"] != 0:
+        fail(f"slice D: {d['kfs_added_in_blackout']} keyframes added "
+             "during the blackout")
+    if d["relocs_at_revisit"] < 1:
+        fail("slice D: the revisit did not relocalize")
+    gate("D", "relocalized translation error (m)", d["reloc_trans_m"],
+         max(0.05, 1.25 * JAX_SLICE_D["reloc_trans_m"]))
+    gate("D", "relocalized rotation error (rad)", d["reloc_rot_rad"],
+         max(0.05, 1.25 * JAX_SLICE_D["reloc_rot_rad"]))
+    gate("D", "last frame error (m)", d["last_err_m"],
+         max(0.1, 1.25 * JAX_SLICE_D["last_err_m"]))
+    print(f"[slice D] full-BA keyframe ATE {d['fullba_ate_m']} m "
+          f"(JAX package {JAX_SLICE_D['fullba_ate_m']} m)", flush=True)
+
+
+def launched_shapes_scorer(res, dev):
+    """The scorer at every (M, N, Nq) slice ``res`` launched, per path
+    (loop closure: Nq = N; relocalizer: Nq = max_kps = N / 2): one set of
+    inputs at the path's largest M, every launched M held against both
+    plain versions (match_bits 48, and 0, 127, 256 at the largest M), and
+    the largest timed. Returns the per-path rows and the largest
+    difference."""
+    by_path = {}
+    for M, N, Nq, n in res["scorer_shapes"]:
+        by_path.setdefault((N, Nq), []).append((M, n))
+    rows, err = [], 0.0
+    for (N, Nq), ms in sorted(by_path.items()):
+        path = "loop closure" if Nq == N else "relocalizer"
+        M = max(m for m, _ in ms)
+        args = scorer_inputs(M, N, Nq, seed=M + N + Nq, dev=dev)
+        store, sv, q, qv = args
+        label = f"slice {res['slice']} {path}"
+        for m, _ in ms:
+            err = max(err, scorer_equal(
+                f"{label} M={m}", (store[:m], sv[:m], q, qv), 48)[1])
+        for b in (0, 127, 256):
+            err = max(err, scorer_equal(f"{label} M={M}", args, b)[1])
+        row = time_scorer(args)
+        print(f"[kernels] hamming_score {label}: M = "
+              f"{sorted(m for m, _ in ms)} at N={N} Nq={Nq} equal to both "
+              f"plain versions (atol 0); largest M={M}: {describe(row)}",
+              flush=True)
+        rows.append(dict(slice=res["slice"], path=path,
+                         launches=sum(n for _, n in ms),
+                         shapes_launched=len(ms), **row,
+                         index_cube_bytes=res["index_cube_bytes"]))
+    return rows, err
 
 
 def main() -> int:
@@ -446,24 +661,34 @@ def main() -> int:
     if not b["ate_m"] <= gate_b:
         fail(f"slice B: ATE {b['ate_m']:.4f} m > {gate_b:.4f}")
 
+    c = run_slice("C", dev)
+    gate_slice_c(c)
+    d = run_slice("D", dev)
+    gate_slice_d(d)
+
     # each path's figures are at its last main-path query; the record's
-    # top-level ones are slice B's; phase 3's shapes follow in `phase3`
+    # top-level ones are slice B's, its launches those of all four
+    # slices; phase 3's shapes follow in `phase3`
     paths = []
     for res, cap in ((b, rows[0]), (a, rows[1])):
         main, err = main_path_scorer(res, cap["shape"]["N"], dev)
         max_err = max(max_err, err)
-        paths.append(dict(slice=res["slice"],
+        paths.append(dict(slice=res["slice"], path="loop closure",
                           launches=res["scorer_launches"], **main,
                           index_cube_bytes=res["index_cube_bytes"]))
+    for res in (c, d):
+        more, err = launched_shapes_scorer(res, dev)
+        max_err = max(max_err, err)
+        paths += more
     top = {k: paths[0][k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")}
     kernels_line = {"kernels": [dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
-        launches=b["scorer_launches"], max_abs_err=max_err,
-        library_ms=None, **top, paths=paths, phase3=rows,
-        index_compaction=compaction)]}
+        launches=sum(r["scorer_launches"] for r in (a, b, c, d)),
+        max_abs_err=max_err, library_ms=None, **top, paths=paths,
+        phase3=rows, index_compaction=compaction)]}
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

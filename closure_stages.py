@@ -27,6 +27,8 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("seeds", type=int, nargs="+")
     ap.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    ap.add_argument("--dump", default=None,
+                    help="write the first seed's loose-BA input here")
     args = ap.parse_args(argv)
 
     import chip_smoke
@@ -72,9 +74,34 @@ def main(argv) -> int:
         events.append(dict(stage="after_loose_ba", kf_errs=kf_errs(m, w)))
         return n
 
+    dumped = []
+
+    def dump_problem(prob, rho, ray, obs_valid, params, cfg_, iters):
+        kf = prob.kf_ids
+        gt = np.zeros((len(kf), 3))
+        for w, k in enumerate(kf):
+            if k >= 0:
+                gt[w] = seq.gt_poses[int(np.argmin(np.abs(
+                    seq.times - slam_now[0].map.kf_times[k]))), 4:7]
+        np.savez_compressed(
+            args.dump, **{f: getattr(prob, f) for f in (
+                "kf_ids", "kf_poses", "kf_fixed", "lm_ids", "lm_pos",
+                "obs_kf", "obs_lm", "obs_px", "obs_cam", "obs_valid",
+                "lm_anchor", "lm_anchor_px")},
+            rho=rho, ray=ray, obs_valid_inv=obs_valid,
+            intr=np.asarray(params.intr, np.float64),
+            T_rl=params.T_rl.cpu().numpy(),
+            robust_th=float(cfg_.robust_mono_th),
+            iters_robust=int(iters or cfg_.ba_iters),
+            iters_l2=3 if cfg_.apply_l2_after_robust else 0,
+            gt_pos=gt, seed=args.seeds[0], device=args.device)
+
     def traced_solve(prob, rho, ray, obs_valid, params, cfg_, iters=None):
         out = solve_problem(prob, rho, ray, obs_valid, params, cfg_,
                             iters=iters)
+        if in_loose[0] and args.dump and not dumped:
+            dump_problem(prob, rho, ray, obs_valid, params, cfg_, iters)
+            dumped.append(args.dump)
         if in_loose[0]:
             cpu = params._replace(**{f: getattr(params, f).cpu() for f in
                                      ("fx", "fy", "cx", "cy", "T_rl")})
@@ -101,9 +128,11 @@ def main(argv) -> int:
     ba_variants.loose_ba = traced_loose
     estimator.solve_problem = traced_solve
 
+    slam_now = [None]
     for s in args.seeds:
         events.clear()
         slam = SlamManager(cfg, device=args.device, seed=s)
+        slam_now[0] = slam
         for i in range(len(seq.times)):
             T = slam.process_frame(seq.images_left[i], seq.images_right[i],
                                    float(seq.times[i]))

@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils import lie
+from ..utils import lie, lie_np
 from ..utils.config import CameraConfig
 
 
@@ -242,3 +242,57 @@ def bilinear_sample(img, coords, out_of_bounds: float = 0.0):
     )
     valid = (x >= 0) & (x <= W - 1) & (y >= 0) & (y <= H - 1)
     return torch.where(valid, val, torch.full_like(val, out_of_bounds))
+
+
+# --------------------------------------------------------------------------
+# Stereo rectification
+# --------------------------------------------------------------------------
+
+def stereo_rectify(
+    cam_l: Camera, cam_r: Camera
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, float]:
+    """Rectifying rotations and shared intrinsics for a stereo pair
+    (cv::stereoRectify as used by `ov2slam.cpp:343-426`), on the host in
+    float64: returns (R_rect_l (3,3), R_rect_r (3,3), K_new (3,3),
+    baseline). After rectification the right camera sits at [+b, 0, 0] in
+    the left rectified frame and epipolar lines are horizontal."""
+    T_lr = cam_r.T_c0_ci.detach().cpu().numpy().astype(np.float64)
+    R_lr = lie_np.quat_to_matrix(T_lr[0:4])
+    t_lr = T_lr[4:7]
+
+    # new shared orientation A (rows = new axes in the left frame): x along
+    # the baseline, y close to the left camera's image-down axis, z = x × y
+    e1 = t_lr / np.linalg.norm(t_lr)
+    e2 = np.cross(np.array([0.0, 0.0, 1.0]), e1)
+    e2 /= np.linalg.norm(e2)
+    e3 = np.cross(e1, e2)
+    R_rect_l = np.stack([e1, e2, e3], axis=0)
+    # x_rect_r = (A @ R_lr) x_r shares orientation with x_rect_l = A x_l
+    R_rect_r = R_rect_l @ R_lr
+
+    baseline = float(np.linalg.norm(t_lr))
+    K_new = 0.5 * (cam_l.K.detach().cpu().numpy().astype(np.float64)
+                   + cam_r.K.detach().cpu().numpy().astype(np.float64))
+    K_new[0, 1] = 0.0
+    return R_rect_l, R_rect_r, K_new, baseline
+
+
+def compute_rectify_map(cam: Camera, R_rect: np.ndarray,
+                        K_new: np.ndarray) -> torch.Tensor:
+    """Remap LUT (H, W, 2) on the camera's device: rectified output pixel
+    → raw input pixel, folding the rectifying rotation and the distortion
+    (`setUndistStereoMap`, `camera_calibration.cpp:134-194`)."""
+    dtype, dev = cam.K.dtype, cam.device
+    ys, xs = torch.meshgrid(
+        torch.arange(cam.height, dtype=dtype, device=dev),
+        torch.arange(cam.width, dtype=dtype, device=dev), indexing="ij")
+    K_new = torch.as_tensor(np.asarray(K_new), dtype=dtype, device=dev)
+    xn = torch.stack(
+        [(xs - K_new[0, 2]) / K_new[0, 0], (ys - K_new[1, 2]) / K_new[1, 1],
+         torch.ones_like(xs)], dim=-1)
+    # rotate back into the raw camera frame
+    Rinv = torch.as_tensor(np.asarray(R_rect), dtype=dtype, device=dev).T
+    v = xn @ Rinv.T
+    xn_raw = v[..., 0:2] / v[..., 2:3]
+    xd = cam._distort_fn()(xn_raw, cam.dist)
+    return xd * cam._f() + cam._c()

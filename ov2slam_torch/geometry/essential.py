@@ -389,10 +389,11 @@ def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
 
 
 def relative_pose_ransac(gen, x_l, x_r, valid_mask, focal, err_th_px,
-                         n_iters: int = 100):
+                         n_iters: int = 100, idx5=None, idx8=None):
     """Essential RANSAC + cheirality decomposition → (T_lr, inliers, n);
-    unit-norm translation."""
+    unit-norm translation. ``idx5``/``idx8``: as in
+    :func:`essential_ransac`."""
     E, inl, n = essential_ransac(gen, x_l, x_r, valid_mask, focal,
-                                 err_th_px, n_iters)
+                                 err_th_px, n_iters, idx5=idx5, idx8=idx8)
     T_lr, _ = decompose_essential(E, x_l, x_r, inl)
     return T_lr, inl, n

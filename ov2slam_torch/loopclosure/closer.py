@@ -56,6 +56,15 @@ class LoopCloser:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
+    def reset_map(self, map_store):
+        """Follow a new (empty) map after a full reset: the old map's
+        keyframes leave the place index, since the new map's slots and seqs
+        restart at 0 and would alias them."""
+        self.map = map_store
+        self.index.clear()
+        self._last_closure_seq = None
+        self.estimator.lc_kf_id = -1
+
     # ------------------------------------------------------------------ #
 
     def _extra_query_kps(self, img, kps_px, kps_valid):

@@ -15,7 +15,8 @@ descriptors), as the JAX package keeps it for its TPU kernel. ``add``
 writes one row in place; compaction rewrites the kept rows from the packed
 host copy and zeroes the rest. A query scores only the populated prefix of the cube. The same code
 runs on every device. Temporal-consistency grouping ("islands") and the
-recent-frame mask are host logic.
+recent-frame mask of the loop-closure ``query`` are host logic; the
+relocalizer's ``query_best`` scores every stored row and takes the top k.
 """
 
 from __future__ import annotations
@@ -76,6 +77,16 @@ class PlaceIndex:
         self._write_rows(slice(i, i + 1))
         self.kf_ids.append(kfid)
         self.kf_seqs.append(-1 if seq is None else int(seq))
+
+    def clear(self):
+        """Drop every entry; the device cube is kept and zeroed."""
+        if self._cube is not None:
+            self._valid[:] = False
+            self._cube.zero_()
+            self._dev_valid.zero_()
+        self.kf_ids = []
+        self.kf_seqs = []
+        self._last_candidate = None
 
     def _compact(self, seq_lookup=None):
         """Reclaim rows at capacity: a long run pushes more keyframes
@@ -138,6 +149,23 @@ class PlaceIndex:
                                    self._dev_valid[:usable], q, qv,
                                    self.match_bits)
         return scores.cpu().numpy()
+
+    def query_best(self, desc: np.ndarray, valid: np.ndarray,
+                   top_k: int = 3,
+                   seq_lookup=None) -> List[Tuple[int, float]]:
+        """Top-k scoring keyframes with NO recency mask and NO island
+        temporal-consistency gate — used for relocalization after tracking
+        loss, where a single lost frame must match immediately and recent
+        keyframes are the most likely matches. Stale entries never come
+        back."""
+        n = len(self.kf_ids)
+        if n == 0 or self._desc is None:
+            return []
+        scores = self._mask_stale(self._raw_scores(desc, valid, n),
+                                  seq_lookup)
+        order = np.argsort(-scores)[:top_k]
+        return [(self.kf_ids[int(i)], float(scores[int(i)]))
+                for i in order if scores[int(i)] >= 0]
 
     def query(self, desc: np.ndarray, valid: np.ndarray,
               exclude: Optional[set] = None,

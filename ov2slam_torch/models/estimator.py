@@ -1,9 +1,10 @@
 """Estimator: local bundle adjustment + keyframe filtering.
 
 Port of ``ov2slam_tpu/models/estimator.py`` (the reference's `Estimator`,
-`src/estimator.cpp`), on the inverse-depth branch: drives
-windowed BA over the covisibility graph (`applyLocalBA`, `:67-98`) and
-culls redundant keyframes (`mapFiltering`, `:101-183`).
+`src/estimator.cpp`): drives windowed BA over the covisibility graph
+(`applyLocalBA`, `:67-98`) — anchored inverse depth with ``use_inv_depth``,
+xyz points otherwise — and culls redundant keyframes (`mapFiltering`,
+`:101-183`).
 
 BA is a bounded solve (fixed iterations) on the estimator's device.
 """
@@ -13,24 +14,39 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..solvers.ba import make_ba_params
+from ..solvers.ba import ba_solve_two_pass, make_ba_params
 from ..solvers.ba_invdepth import ba_solve_invdepth_two_pass, invdepth_state
 from ..utils.config import SlamConfig
 from ..utils.profiler import Profiler
 
 
+def _on(params):
+    dev = params.fx.device
+    return lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
 def solve_problem(prob, rho, ray, obs_valid, params, cfg, iters=None):
     """Two-pass inverse-depth solve of a host BAProblem on the params'
     device; returns numpy (poses, points, rho, inlier, cost)."""
-    dev = params.fx.device
-
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
-
+    t = _on(params)
     out = ba_solve_invdepth_two_pass(
         t(prob.kf_poses), t(prob.kf_fixed), t(rho), t(prob.lm_anchor),
         t(ray), t(prob.obs_kf), t(prob.obs_lm), t(prob.obs_px),
         t(prob.obs_cam), t(obs_valid), params,
+        robust_th=float(cfg.robust_mono_th),
+        iters_robust=iters or cfg.ba_iters,
+        iters_l2=3 if cfg.apply_l2_after_robust else 0)
+    return tuple(o.cpu().numpy() for o in out)
+
+
+def solve_problem_xyz(prob, params, cfg, iters=None):
+    """Two-pass xyz solve of a host BAProblem on the params' device;
+    returns numpy (poses, points, inlier, cost)."""
+    t = _on(params)
+    out = ba_solve_two_pass(
+        t(prob.kf_poses), t(prob.kf_fixed), t(prob.lm_pos),
+        t(prob.obs_kf), t(prob.obs_lm), t(prob.obs_px), t(prob.obs_cam),
+        t(prob.obs_valid), params,
         robust_th=float(cfg.robust_mono_th),
         iters_robust=iters or cfg.ba_iters,
         iters_l2=3 if cfg.apply_l2_after_robust else 0)
@@ -44,10 +60,6 @@ class Estimator:
         self.params = make_ba_params(cam_l, cam_r)
         self.prof = Profiler.instance()
         self.lc_kf_id = -1   # loop-closure-protected KF (`estimator.cpp:129-131`)
-        if not cfg.use_inv_depth:
-            raise NotImplementedError(
-                "ov2slam_torch: only the inverse-depth BA (use_inv_depth="
-                "True) is ported; the xyz ba_solve is not")
 
     # ------------------------------------------------------------------ #
 
@@ -104,11 +116,15 @@ class Estimator:
             self.prof.stop("3.LocalBA")
             return 0
 
-        # anchored inverse-depth parameterization (`buse_inv_depth`,
-        # KSE3AnchInvDepth factors, `optimizer.cpp:207-290`)
-        rho, ray, obs_valid = invdepth_state(prob, self.params)
-        poses, points, _, inlier, _ = solve_problem(
-            prob, rho, ray, obs_valid, self.params, cfg)
+        if cfg.use_inv_depth:
+            # anchored inverse-depth parameterization (`buse_inv_depth`,
+            # KSE3AnchInvDepth factors, `optimizer.cpp:207-290`)
+            rho, ray, obs_valid = invdepth_state(prob, self.params)
+            poses, points, _, inlier, _ = solve_problem(
+                prob, rho, ray, obs_valid, self.params, cfg)
+        else:
+            poses, points, inlier, _ = solve_problem_xyz(
+                prob, self.params, cfg)
 
         # landmark culling: drop landmarks whose observations are mostly
         # outliers (`optimizer.cpp:805-882`) — vectorized per-landmark
@@ -121,7 +137,8 @@ class Estimator:
         # (observed as total 3D-landmark die-off in async runs whose
         # shifting windows orphan many anchors).
         Lw = len(prob.lm_ids)
-        vv = np.asarray(obs_valid, bool)
+        vv = (np.asarray(obs_valid, bool) if cfg.use_inv_depth
+              else prob.obs_valid)
         tot = np.bincount(prob.obs_lm[vv], minlength=Lw)[:Lw]
         good = np.bincount(prob.obs_lm[vv & inlier], minlength=Lw)[:Lw]
         lm_ok = (prob.lm_ids < 0) | (tot == 0) | (

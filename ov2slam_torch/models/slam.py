@@ -1,85 +1,93 @@
 """SlamManager: the session orchestrator.
 
-Port of the synchronous stereo path of ``ov2slam_tpu/models/slam.py`` (the
+Port of the synchronous path of ``ov2slam_tpu/models/slam.py`` (the
 reference's `SlamManager`, `src/ov2slam.cpp`): owns the camera models,
-front-end, mapper, estimator and loop closer; feeds frames through them;
-handles tracking-failure reset (`ov2slam.cpp:428-455`), trajectory logging
-and result writing (`writeResults`, `ov2slam.cpp:576-623`).
+front-end, mapper, estimator, loop closer and relocalizer; feeds frames
+through them; handles monocular initialization (`checkReadyForInit`,
+`visual_front_end.cpp:855-984`), image-level stereo rectification and
+undistortion (`ov2slam.cpp:343-426`, `camera_calibration.cpp:80-194`),
+relocalization or reset after tracking loss (`ov2slam.cpp:428-455`),
+trajectory logging and result writing with the optional full BA and the
+full-trajectory pose graph (`writeResults`, `ov2slam.cpp:576-703`).
 
-Supported configuration: stereo, synchronous, ``slam_mode`` on,
-``use_inv_depth`` on, loop closer on or off, relocalizer off, without
-image-level rectification/undistortion, pipelining or the final full BA.
-Anything else raises ``NotImplementedError``. All device work runs on
-``device`` (``None`` = the GPU; see :mod:`ov2slam_torch.device`).
+Supported: mono or stereo, ``slam_mode`` on, inverse-depth or xyz BA,
+loop closer and relocalizer on or off. ``pipelined_frontend`` raises
+``NotImplementedError``. All device work runs on ``device`` (``None`` =
+the GPU; see :mod:`ov2slam_torch.device`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..core.camera import build_camera
+from ..core.camera import (bilinear_sample, build_camera,
+                           compute_rectify_map, stereo_rectify)
 from ..device import resolve_device
+from ..geometry.essential import relative_pose_ransac
+from ..geometry.triangulation import reprojection_checks, triangulate_midpoint
 from ..mapping.store import MapStore
 from ..models.estimator import Estimator
 from ..models.frontend import FrontEnd
 from ..models.mapper import Mapper
+from ..utils import lie, lie_np
 from ..utils.config import SlamConfig
 from ..utils.profiler import Profiler
 from ..utils.trajectory import TrajectoryLogger
 
-
-def check_supported(cfg: SlamConfig, use_loop_closer: bool) -> None:
-    """Raise NotImplementedError for a configuration outside the port."""
-    unsupported = []
-    if cfg.mono or not cfg.stereo:
-        unsupported.append("mono (monocular initialization)")
-    if use_loop_closer and cfg.use_relocalizer:
-        unsupported.append("use_relocalizer")
-    if cfg.pipelined_frontend:
-        unsupported.append("pipelined_frontend")
-    if cfg.do_full_ba:
-        unsupported.append("do_full_ba")
-    if cfg.do_stereo_rect:
-        unsupported.append("do_stereo_rect")
-    if cfg.do_undist and any(float(d) != 0.0 for d in cfg.cam_left.dist):
-        unsupported.append("do_undist with a distorted camera")
-    if not cfg.use_inv_depth:
-        unsupported.append("use_inv_depth=False (xyz BA)")
-    if unsupported:
-        raise NotImplementedError(
-            "ov2slam_torch.SlamManager does not support: "
-            + ", ".join(unsupported))
+MONO_INIT_SCALE = 0.25  # reference fixes ||t|| = 0.25 (`visual_front_end.cpp:967-969`)
 
 
 class SlamManager:
     def __init__(self, cfg: SlamConfig,
                  use_loop_closer: Optional[bool] = None, device=None,
                  seed: int = 42):
-        use_lc = (cfg.use_loop_closer if use_loop_closer is None
-                  else use_loop_closer)
-        check_supported(cfg, use_lc)
+        if cfg.pipelined_frontend:
+            raise NotImplementedError(
+                "ov2slam_torch.SlamManager does not support: "
+                "pipelined_frontend")
         self.cfg = cfg
         self.device = resolve_device(device)
-        # RANSAC sample stream of the front-end and the loop closer, held
-        # by this manager (the JAX package seeds PRNGKey(42) / (0) / (7))
+        # RANSAC sample streams held by this manager (the JAX package
+        # seeds PRNGKey(42) / (0) / (7) / (23)): the front end and the mono
+        # initialization draw from ``gen``, the loop closer from seed + 1,
+        # the relocalizer from seed + 2
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
         self.cam_l = build_camera(cfg.cam_left, other=cfg.cam_left,
+                                  build_undist_map=cfg.do_undist,
                                   device=self.device)
-        self.cam_r = build_camera(cfg.cam_right, other=cfg.cam_left,
-                                  device=self.device)
+        self.cam_r = (build_camera(cfg.cam_right, other=cfg.cam_left,
+                                   device=self.device)
+                      if cfg.stereo else None)
+        self._remap_l = None   # image remap LUTs (rect/undist mode)
+        self._remap_r = None
+        if cfg.stereo and cfg.do_stereo_rect:
+            self._setup_stereo_rectification()
+        elif cfg.do_undist and self.cam_l.undist_map is not None:
+            self._setup_mono_undistortion()
         self.map = MapStore(cfg)
         self.frontend = FrontEnd(cfg, self.cam_l, self.map, self.gen)
         self.mapper = Mapper(cfg, self.cam_l, self.cam_r, self.map)
         self.estimator = Estimator(cfg, self.cam_l, self.cam_r, self.map)
         self.loop_closer = None
-        if use_lc:
+        self.relocalizer = None
+        if cfg.use_loop_closer if use_loop_closer is None else use_loop_closer:
             from ..loopclosure.closer import LoopCloser
+            from ..models.relocalizer import Relocalizer
+
             self.loop_closer = LoopCloser(cfg, self.cam_l, self.map,
                                           self.estimator, seed=seed + 1)
+            if cfg.use_relocalizer:
+                reloc_gen = torch.Generator(device=self.device)
+                reloc_gen.manual_seed(seed + 2)
+                self.relocalizer = Relocalizer(
+                    cfg, self.cam_l, self.map, self.loop_closer.index,
+                    reloc_gen)
         self.logger = TrajectoryLogger()
         self.prof = Profiler.instance()
         self.frame_id = -1
@@ -87,12 +95,77 @@ class SlamManager:
 
     # ------------------------------------------------------------------ #
 
+    def _setup_stereo_rectification(self):
+        """Image-level stereo rectification (`bdo_stereo_rect`,
+        `setupStereoCalibration`, `ov2slam.cpp:343-426`): compute the
+        rectifying rotations + shared intrinsics, build remap LUTs, and
+        swap both camera models for the rectified pinhole pair (distortion
+        folded into the LUTs, D := 0 — `camera_calibration.cpp:134-194`)."""
+        R_l, R_r, K_new, baseline = stereo_rectify(self.cam_l, self.cam_r)
+        map_l = compute_rectify_map(self.cam_l, R_l, K_new)
+        map_r = compute_rectify_map(self.cam_r, R_r, K_new)
+        self._remap_l = lambda im: bilinear_sample(im, map_l)
+        self._remap_r = lambda im: bilinear_sample(im, map_r)
+
+        dev = self.device
+        K = torch.as_tensor(K_new, dtype=torch.float32, device=dev)
+        zero_d = torch.zeros_like(self.cam_l.dist)
+        # rectified extrinsic: right camera at [+b, 0, 0] in the left
+        # rectified frame, shared orientation
+        T_c0_cr = lie.make_pose(
+            torch.tensor([1.0, 0, 0, 0], device=dev),
+            torch.tensor([baseline, 0, 0], dtype=torch.float32, device=dev))
+        self.cam_l = dataclasses.replace(
+            self.cam_l, model="pinhole", K=K, dist=zero_d,
+            T_c0_ci=lie.pose_identity(device=dev), undist_map=None)
+        self.cam_r = dataclasses.replace(
+            self.cam_r, model="pinhole", K=K, dist=zero_d,
+            T_c0_ci=T_c0_cr, undist_map=None)
+
+    def _setup_mono_undistortion(self):
+        """Image-level undistortion (`bdo_undist`): remap through the
+        undistortion LUT and zero the camera distortion
+        (`setUndistMap`, `camera_calibration.cpp:80-133`)."""
+        lut = self.cam_l.undist_map
+        self._remap_l = lambda im: bilinear_sample(im, lut)
+        self.cam_l = dataclasses.replace(
+            self.cam_l, dist=torch.zeros_like(self.cam_l.dist),
+            undist_map=None)
+
+    def _remap(self, remap, img):
+        im = torch.as_tensor(np.asarray(img, np.float32), device=self.device)
+        return remap(im)
+
+    # ------------------------------------------------------------------ #
+
     def process_frame(self, img_left: np.ndarray,
                       img_right: Optional[np.ndarray] = None,
                       time: float = 0.0) -> np.ndarray:
-        """Feed one stereo pair; returns the current T_wc."""
+        """Feed one frame (mono, or a stereo pair); returns the current
+        T_wc."""
         self.frame_id += 1
-        is_kf = self.frontend.track_frame(img_left, time)
+        fe = self.frontend
+        if self._remap_l is not None:
+            img_left = self._remap(self._remap_l, img_left)
+        if self._remap_r is not None and img_right is not None:
+            img_right = self._remap(self._remap_r, img_right)
+
+        # post-reset relocalization (beyond-reference): while lost with a
+        # populated map, first try to re-localize against the place index;
+        # on failure fall through IMMEDIATELY to the re-bootstrap path —
+        # holding the pose and waiting for a place match deadlocks when
+        # the camera is in never-visited territory
+        if (self.relocalizer is not None
+                and self.map.n_keyframes > 1 and fe.frame.kf_id < 0
+                and fe.frame.n_valid == 0):
+            fe.preprocess(img_left)
+            fe.frame.time = time
+            if self.relocalizer.try_relocalize(fe):
+                T = fe.frame.T_wc.astype(np.float64)
+                self.logger.add_pose(time, T, False,
+                                     self._kf_key(fe.frame.kf_id), None)
+                return fe.frame.T_wc
+        is_kf = fe.track_frame(img_left, time)
         return self._post_track(is_kf, img_right)
 
     def _post_track(self, is_kf: bool, img_right) -> np.ndarray:
@@ -101,6 +174,21 @@ class SlamManager:
         for the frame currently resolved in ``fe.frame``."""
         fe = self.frontend
         time = fe.frame.time
+
+        if not fe.initialized:
+            # bootstrap starving: restart from the next frame (the
+            # reference resets a failing mono init,
+            # `visual_front_end.cpp:98-113`, `mapper.cpp:129-144`). The
+            # gate is proportional to the grid budget (the reference's
+            # absolute 50 assumes its ~160-cell config); too tight a gate
+            # races the init-parallax accumulation and resets forever.
+            cap0 = self.cfg.grid_cells[0] * self.cfg.grid_cells[1]
+            if (self.map.n_keyframes > 0
+                    and fe.frame.n_valid < max(12, int(0.25 * cap0))):
+                self._reset(full=True)
+                is_kf = False
+            else:
+                is_kf = self._check_mono_init() or is_kf
 
         # tracking-failure detection BEFORE keyframe creation: a starving
         # frame must not become a keyframe (`visual_front_end.cpp:100-102`;
@@ -125,7 +213,12 @@ class SlamManager:
             if kfid < 0:      # featureless re-bootstrap vetoed
                 is_kf = False
         if starved:
-            self._reset()
+            # beyond-reference: try map-preserving relocalization via the
+            # place-recognition index before falling back to the
+            # reference's reset (`ov2slam.cpp:428-455`)
+            if not (self.relocalizer is not None
+                    and self.relocalizer.try_relocalize(fe)):
+                self._reset()
 
         T = fe.frame.T_wc.astype(np.float64)
         kf_id = fe.frame.kf_id
@@ -187,6 +280,91 @@ class SlamManager:
             fe.motion.prev_T = f.T_wc.astype(np.float64)
         return kfid
 
+    # ------------------------------------------------------------------ #
+
+    def _check_mono_init(self) -> bool:
+        """Monocular bootstrap (`checkReadyForInit`,
+        `visual_front_end.cpp:855-984`): once median parallax vs KF0
+        exceeds the gate, recover the relative pose with essential RANSAC
+        (scale fixed to 0.25), triangulate, and promote to an initialized
+        map."""
+        cfg = self.cfg
+        fe = self.frontend
+        f = fe.frame
+        if self.map.n_keyframes == 0 or f.kf_id < 0:
+            return False
+        kf0 = f.kf_id
+        sel = np.nonzero(f.valid & (f.lmids >= 0))[0]
+        if len(sel) < 30:
+            return False
+
+        kf_slots = {int(l): s for s, l in
+                    enumerate(self.map.obs_lmid[kf0]) if l >= 0}
+        pairs = [(s, kf_slots[int(f.lmids[s])]) for s in sel
+                 if int(f.lmids[s]) in kf_slots]
+        if len(pairs) < 30:
+            return False
+        cur = f.px_und[[p[0] for p in pairs]]
+        kf = self.map.obs_px[kf0][[p[1] for p in pairs]]
+        parallax = np.median(np.linalg.norm(cur - kf, axis=-1))
+        if parallax < cfg.init_parallax:
+            return False
+
+        fx, fy, cx, cy = self.cam_l.intrinsics_f
+        n = len(pairs)
+        cap = ((n + 127) // 128) * 128
+        xl_p = np.zeros((cap, 2), np.float32)
+        xr_p = np.zeros((cap, 2), np.float32)
+        vm = np.zeros(cap, bool)
+        xl_p[:n] = (kf - (cx, cy)) / (fx, fy)
+        xr_p[:n] = (cur - (cx, cy)) / (fx, fy)
+        vm[:n] = True
+
+        dev = self.device
+
+        def t(a):
+            return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+        T_rel, inl, n_inl = relative_pose_ransac(
+            self.gen, t(xl_p), t(xr_p), t(vm), focal=fx,
+            err_th_px=cfg.ransac_err, n_iters=cfg.ransac_iter)
+        if int(n_inl) < 0.5 * n:
+            return False
+        T_rel = T_rel.cpu().numpy().astype(np.float64)
+        # fix scale: ||t|| = MONO_INIT_SCALE
+        tnorm = np.linalg.norm(T_rel[4:7])
+        if tnorm < 1e-6:
+            return False
+        T_rel[4:7] *= MONO_INIT_SCALE / tnorm
+
+        T_kf0 = self.map.kf_poses[kf0].astype(np.float64)
+        f.T_wc = lie_np.pose_compose(T_kf0, T_rel).astype(np.float32)
+
+        # triangulate inliers and promote their landmarks
+        inl = inl.cpu().numpy()[:n]
+        rows = np.array([p[0] for p in pairs])[inl]
+        bl = self.cam_l.bearing(t(kf[inl].astype(np.float32)))
+        bc = self.cam_l.bearing(t(cur[inl].astype(np.float32)))
+        T32 = t(T_rel.astype(np.float32))
+        pts0 = triangulate_midpoint(T32[None], bl, bc)
+        ok = reprojection_checks(T32, bl, bc, pts0, fx, cfg.max_reproj_err,
+                                 min_depth=0.05).cpu().numpy()
+        if ok.sum() < 20:
+            return False
+        pts_w = lie_np.pose_apply(
+            T_kf0, pts0.cpu().numpy()[ok].astype(np.float64))
+        self.map.set_landmark_positions(
+            f.lmids[rows[ok]], pts_w.astype(np.float32))
+
+        fe.initialized = True
+        # re-seed the motion model: the init jump is NOT one-frame velocity
+        fe.motion.reset()
+        fe.motion.prev_T = f.T_wc.astype(np.float64)
+        fe.motion.prev_time = f.time
+        return True  # make this frame a keyframe
+
+    # ------------------------------------------------------------------ #
+
     def _reset(self, full: bool = False):
         """(`SlamManager::reset`, `ov2slam.cpp:428-455`) — clears front-end
         tracking state; ``full`` also discards the map (pre-init bootstrap
@@ -198,21 +376,43 @@ class SlamManager:
             self.frontend.map = self.map
             self.mapper.map = self.map
             self.estimator.map = self.map
+            # unlike the JAX package, whose relocalizer and place index keep
+            # the discarded map's keyframes (ROADMAP Queue 3), both follow
+            # the new map
             if self.loop_closer is not None:
-                self.loop_closer.map = self.map
+                self.loop_closer.reset_map(self.map)
+            if self.relocalizer is not None:
+                self.relocalizer.map = self.map
 
     def write_results(self, out_dir: str = "."):
-        """Final products (`writeResults`, `ov2slam.cpp:576-623`), without
-        the optional full BA and the full-trajectory pose graph (neither
-        is ported yet)."""
-        import os
-
+        """Final products (`writeResults`, `ov2slam.cpp:576-623`): the
+        frame, keyframe and KITTI trajectories, the keyframe trajectory
+        after the optional full BA, and the loop-corrected full trajectory
+        before and after the full pose graph."""
         self.logger.write_tum(os.path.join(out_dir, "ov2slam_traj.txt"))
         self.logger.write_tum(
             os.path.join(out_dir, "ov2slam_kfs_traj.txt"),
             keyframes_only=True)
         self.logger.write_kitti(
             os.path.join(out_dir, "ov2slam_traj_kitti.txt"))
+
+        if self.cfg.do_full_ba and self.map.n_keyframes >= 3:
+            # optional final global BA (`ov2slam.cpp:600-615` runFullBA),
+            # then the post-BA KF trajectory (`ov2slam.cpp:608-614`)
+            from ..solvers.ba_variants import full_ba
+
+            full_ba(self.map, self.estimator.params, self.cfg)
+            kf_times = {fp.kf_id: fp.time for fp in self.logger.frames
+                        if fp.is_keyframe}   # keyed by seq (see _kf_key)
+            tl = TrajectoryLogger()
+            for k in np.nonzero(self.map.kf_valid)[0]:
+                seq = int(self.map.kf_seq[k])
+                if seq in kf_times:
+                    tl.add_pose(kf_times[seq],
+                                self.map.kf_poses[k].astype(np.float64),
+                                True, seq)
+            tl.write_tum(os.path.join(out_dir,
+                                      "ov2slam_fullba_kfs_traj.txt"))
 
         # LC-corrected full trajectory from optimized KF poses
         # (`writeFullTrajectoryLC`, `ov2slam.cpp:626-703`); keyed by seq
@@ -222,6 +422,21 @@ class SlamManager:
         frames = self.logger.replay_with_keyframes(kf_poses)
         TrajectoryLogger.write_frames_tum(
             frames, os.path.join(out_dir, "ov2slam_full_traj_wlc.txt"))
+        # full pose graph over all frames, KFs fixed
+        # (`Optimizer::fullPoseGraph`, `optimizer.cpp:2783-2865`)
+        if len(frames) >= 3:
+            from ..solvers.posegraph import full_pose_graph
+
+            opt = full_pose_graph(
+                np.stack([fp.T_wc for fp in frames]),
+                np.stack([fp.T_wc for fp in self.logger.frames]),
+                np.array([fp.is_keyframe for fp in frames]),
+                device=self.device)
+            opt_frames = [dataclasses.replace(fp, T_wc=opt[i])
+                          for i, fp in enumerate(frames)]
+            TrajectoryLogger.write_frames_tum(
+                opt_frames,
+                os.path.join(out_dir, "ov2slam_full_traj_wlc_opt.txt"))
 
     def estimated_trajectory(self):
         """(times (F,), poses (F, 7)) of all processed frames."""

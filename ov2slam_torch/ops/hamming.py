@@ -26,6 +26,8 @@ integers and the one division is IEEE f32, so all paths agree bit for bit.
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from .. import kernels
@@ -167,10 +169,13 @@ def match_scores_bits(store_pm1, store_valid, q_pm1, q_valid,
     if rc != 0:
         raise RuntimeError(f"hamming_score launch failed: code {rc}")
     match_scores_bits.launches += 1
+    match_scores_bits.shapes[(M, N, Nq)] += 1
     return out
 
 
+# launches of the kernel, and how many at each (M, N, Nq)
 match_scores_bits.launches = 0
+match_scores_bits.shapes = collections.Counter()
 
 
 def match_scores(store_desc, store_valid, q_desc, q_valid, match_bits: int):

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..utils import lie, lie_np
-from .ba import DENSE_SCHUR_MAX_KFS, BAParams, _huber_weight
+from .ba import DENSE_SCHUR_MAX_KFS, BAParams, _huber_weight, _robust_cost
 from .segment import SegmentSum
 
 
@@ -125,15 +125,6 @@ def _residuals_jacobians_inv(T_cw, lm_rho, lm_anchor, lm_ray,
     J_rho = torch.einsum("oab,ob->oa", J_Xw, dXw_drho)          # (O, 2)
 
     return r, J_obs, J_anch, J_rho, depth_ok
-
-
-def _robust_cost(chi2, robust_th: float):
-    if robust_th > 0:
-        return torch.where(
-            chi2 <= robust_th, chi2,
-            2.0 * torch.sqrt(robust_th * torch.clamp(chi2, min=0.0))
-            - robust_th)
-    return chi2
 
 
 def _total_cost_inv(T_cw, lm_rho, lm_anchor, lm_ray, obs_kf, obs_lm,

@@ -1,7 +1,9 @@
-"""Post-loop-closure BA problem types on top of the inverse-depth solver.
+"""The remaining Optimizer problem types, on top of the BA solvers.
 
-Port of the inverse-depth branch of ``ov2slam_tpu/solvers/ba_variants.py``
-(the reference's Optimizer problem types, `include/optimizer.hpp:33-67`):
+Port of ``ov2slam_tpu/solvers/ba_variants.py`` (the reference's Optimizer
+problem types, `include/optimizer.hpp:33-67`). Each solves with the
+anchored inverse-depth BA when ``use_inv_depth`` is set (as the reference
+does for every problem type) and with the xyz BA otherwise:
 
 - ``structure_only_ba`` — landmarks only, poses const
   (`Optimizer::structureOnlyBA`, `optimizer.cpp:2594-2781`): every pose
@@ -9,8 +11,9 @@ Port of the inverse-depth branch of ``ov2slam_tpu/solvers/ba_variants.py``
 - ``loose_ba`` — all KFs in an insertion-seq range, the two oldest fixed
   (`Optimizer::looseBA`, `optimizer.cpp:900-1672`), used after loop
   closure.
-
-``full_ba`` (the optional final pass) is not ported yet.
+- ``full_ba`` — every KF, the oldest fixed (two for mono), twice the
+  local BA's iterations (`Optimizer::fullBA`, `optimizer.cpp:1674-2332`):
+  the optional final pass (``do_full_ba``).
 """
 
 from __future__ import annotations
@@ -24,18 +27,19 @@ from .ba_invdepth import invdepth_state
 def _solve_window(map_store, window, fixed_ids, params: BAParams,
                   cfg, max_kfs: int, max_obs: int,
                   iters: Optional[int] = None):
-    from ..models.estimator import solve_problem
+    from ..models.estimator import solve_problem, solve_problem_xyz
 
-    if not getattr(cfg, "use_inv_depth", False):
-        raise NotImplementedError(
-            "ov2slam_torch: only the inverse-depth BA is ported")
     prob = map_store.build_ba_problem(
         window, fixed_ids, max_kfs=max_kfs, max_obs=max_obs)
     if prob.n_obs < 10:
         return 0
-    rho, ray, obs_valid = invdepth_state(prob, params)
-    poses, points, _, _, _ = solve_problem(prob, rho, ray, obs_valid,
-                                           params, cfg, iters=iters)
+    if getattr(cfg, "use_inv_depth", False):
+        rho, ray, obs_valid = invdepth_state(prob, params)
+        poses, points, _, _, _ = solve_problem(prob, rho, ray, obs_valid,
+                                               params, cfg, iters=iters)
+    else:
+        poses, points, _, _ = solve_problem_xyz(prob, params, cfg,
+                                                iters=iters)
     map_store.apply_ba_result(prob, poses, points)
     return int(prob.n_obs)
 
@@ -65,3 +69,18 @@ def loose_ba(map_store, kf_min: int, kf_max: int, params: BAParams,
     cap_kfs = max(cfg.local_ba_max_kfs, len(window))
     return _solve_window(map_store, window, fixed, params, cfg,
                          max_kfs=cap_kfs, max_obs=4 * cfg.local_ba_max_obs)
+
+
+def full_ba(map_store, params: BAParams, cfg,
+            iters: Optional[int] = None) -> int:
+    """Global BA over every valid keyframe; the oldest (and the next oldest
+    for the mono gauge) fixed. The reference runs it only at shutdown when
+    ``do_full_ba`` is set (`ov2slam.cpp:600-615`)."""
+    window = [int(k) for k in map_store.kfs_by_seq()]
+    if len(window) < 3:
+        return 0
+    n_fix = 1 if cfg.stereo else 2
+    return _solve_window(
+        map_store, window, window[:n_fix], params, cfg,
+        max_kfs=len(window), max_obs=8 * cfg.local_ba_max_obs,
+        iters=iters or 2 * cfg.ba_iters)

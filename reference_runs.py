@@ -2,17 +2,21 @@
 """Reference figures for the port's chip-smoke slices.
 
 By default runs the JAX package's ``SlamManager`` (``ov2slam_tpu``) on the
-CPU over slice A and/or slice B of ``chip_smoke.py`` — same sequence, same
-config — and prints one JSON line per slice: ATE, endpoint error,
-keyframes, closures, resets. ``chip_smoke.py`` gates the port against
-these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
+CPU over slices of ``chip_smoke.py`` — same sequence, same config, same
+frame script (``chip_smoke.drive_slice``) — and prints one JSON line per
+slice with the figures ``chip_smoke.slice_outcome`` computes (A, B: ATE,
+endpoint error; C: mono initialization, scale-aligned ATE, the full-BA
+keyframe ATE; D: the relocalization's pose errors, the last frame's
+error), keyframes, closures and resets. ``chip_smoke.py`` gates the port
+against these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
 ``--device`` (``cpu`` by default, or ``cuda``) instead. ``--seeds`` runs
 once per value: the port's ``SlamManager(seed=...)``, which seeds its
 RANSAC generators, or for the JAX package its PRNG keys (manager s, loop
-closer s + 1000, front end s + 2000 and s + 3000) in place of its fixed
+closer s + 1000, front end s + 2000 and s + 3000, relocalizer s + 4000) in place of its fixed
 ones. A seed given twice shows whether two runs agree to the last bit.
 
     JAX_PLATFORMS=cpu python reference_runs.py A B
+    JAX_PLATFORMS=cpu python reference_runs.py C D
     JAX_PLATFORMS=cpu python reference_runs.py A --seeds 1 2 3
     python reference_runs.py --port A --seeds 1 2 3
     python3 reference_runs.py --port --device cuda A --seeds 42 42 1 2 3
@@ -27,17 +31,25 @@ import sys
 import time
 
 
-def run(slam, seq):
-    import numpy as np
+def run(name, slam, seq, ate_rmse, lie_np):
+    """Drive slice ``name`` and compute its figures (results of slices C
+    and D written to a temporary directory, as chip_smoke does)."""
+    import tempfile
+
+    import chip_smoke
 
     t0 = time.perf_counter()
-    for i in range(len(seq.times)):
-        slam.process_frame(seq.images_left[i], seq.images_right[i],
-                           float(seq.times[i]))
+    trace = chip_smoke.drive_slice(name, slam, seq)
     wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = None
+        if name in ("C", "D"):
+            out_dir = tmp
+            slam.write_results(tmp)
+        res = chip_smoke.slice_outcome(name, slam, seq, trace, ate_rmse,
+                                       lie_np, out_dir)
     _, poses = slam.estimated_trajectory()
-    end = float(np.linalg.norm(poses[-1, 4:7] - seq.gt_poses[-1, 4:7]))
-    return poses, end, wall
+    return poses, res, wall
 
 
 def main(argv) -> int:
@@ -57,7 +69,7 @@ def main(argv) -> int:
     if args.port:
         from ov2slam_torch.io import synthetic
         from ov2slam_torch.models.slam import SlamManager
-        from ov2slam_torch.utils import profiles
+        from ov2slam_torch.utils import lie_np, profiles
         from ov2slam_torch.utils.evaluation import ate_rmse
 
         def managers(cfg):
@@ -71,7 +83,7 @@ def main(argv) -> int:
         jax.config.update("jax_platforms", "cpu")
         from ov2slam_tpu.io import synthetic
         from ov2slam_tpu.models.slam import SlamManager
-        from ov2slam_tpu.utils import profiles
+        from ov2slam_tpu.utils import lie_np, profiles
         from ov2slam_tpu.utils.evaluation import ate_rmse
 
         def managers(cfg):
@@ -81,6 +93,8 @@ def main(argv) -> int:
                 slam = SlamManager(cfg)
                 slam._rng = jax.random.PRNGKey(s)
                 slam.loop_closer._rng = jax.random.PRNGKey(s + 1000)
+                if slam.relocalizer is not None:
+                    slam.relocalizer._rng = jax.random.PRNGKey(s + 4000)
                 slam.frontend._rng = jax.random.PRNGKey(s + 2000)
                 slam.frontend._key_dev = jax.random.PRNGKey(s + 3000)
                 yield dict(seed=s), slam
@@ -89,16 +103,12 @@ def main(argv) -> int:
     for name in args.slices:
         seq, cfg = chip_smoke.make_slice(name, synthetic, profiles)
         for extra, slam in managers(cfg):
-            poses, end, wall = run(slam, seq)
-            ate = ate_rmse(poses, seq.gt_poses, align_scale=False)
+            poses, res, wall = run(name, slam, seq, ate_rmse, lie_np)
             print(json.dumps(dict(
                 slice=name, package=package, backend=backend, **extra,
-                width=seq.width, height=seq.height, frames=len(seq.times),
-                ate_m=ate, end_err_m=end,
-                trajectory_sha1=hashlib.sha1(
+                width=seq.width, height=seq.height, frames=len(poses),
+                **res, trajectory_sha1=hashlib.sha1(
                     poses.astype("<f8").tobytes()).hexdigest()[:16],
-                keyframes=int(slam.map._kf_seq_counter),
-                closures=slam.loop_closer.n_closures, resets=slam.n_resets,
                 wall_s=wall)), flush=True)
     return 0
 

@@ -225,3 +225,44 @@ def test_pose_graph_solve_matches():
     end_before = np.linalg.norm(est[n - 1, 4:] - gt[n - 1, 4:])
     end_after = np.linalg.norm(b.numpy()[n - 1, 4:] - gt[n - 1, 4:])
     assert end_after < 0.5 * end_before
+
+
+def test_loose_ba_seed3_lands_where_the_reference_does():
+    """Slice A's loose BA after its loop closure, as the H100 built it for
+    RANSAC seed 3 (``closure_stages.py --dump``): the JAX package's and the
+    port's two-pass inverse-depth solves, with ``_solve_window``'s iteration
+    counts, both move the window's second half ~0.27 m away from the truth
+    (the far solution is the reference's own behaviour). Keyframe
+    positions agree to 0.02 m (f32 solves whose sums differ in order, on a
+    problem whose LM accept/reject path is sensitive to them)."""
+    import os
+
+    d = dict(np.load(os.path.join(os.path.dirname(__file__), "data",
+                                  "torch_loose_ba_seed3.npz")))
+    fx, fy, cx, cy = (float(v) for v in d["intr"])
+    args = [d[k] for k in ("kf_poses", "kf_fixed", "rho", "lm_anchor", "ray",
+                           "obs_kf", "obs_lm", "obs_px", "obs_cam",
+                           "obs_valid_inv")]
+    kw = dict(robust_th=float(d["robust_th"]),
+              iters_robust=int(d["iters_robust"]),
+              iters_l2=int(d["iters_l2"]))
+    jp = jbi.BAParams(fx=jnp.float32(fx), fy=jnp.float32(fy),
+                      cx=jnp.float32(cx), cy=jnp.float32(cy),
+                      T_rl=jnp.asarray(d["T_rl"]))
+    tp = TParams(fx=torch.tensor(fx), fy=torch.tensor(fy),
+                 cx=torch.tensor(cx), cy=torch.tensor(cy),
+                 T_rl=T(d["T_rl"]), intr=(fx, fy, cx, cy))
+    j = np.asarray(jbi.ba_solve_invdepth_two_pass(
+        *[jnp.asarray(a) for a in args], jp, **kw)[0])
+    t = tbi.ba_solve_invdepth_two_pass(*[T(a) for a in args], tp, **kw)[0]
+    t = t.numpy()
+    kf = d["kf_ids"] >= 0
+    np.testing.assert_allclose(t[kf, 4:7], j[kf, 4:7], atol=0.02)
+    err_j = np.linalg.norm(j[kf, 4:7] - d["gt_pos"][kf], axis=1)
+    err_t = np.linalg.norm(t[kf, 4:7] - d["gt_pos"][kf], axis=1)
+    before = np.linalg.norm(d["kf_poses"][kf, 4:7] - d["gt_pos"][kf], axis=1)
+    assert before.max() < 0.11
+    assert err_j[-5:].min() > 0.2 and err_t[-5:].min() > 0.2
+    # the two gauge-fixed keyframes do not move (the recentring round
+    # trip in f32 aside)
+    np.testing.assert_allclose(t[kf][:2], d["kf_poses"][kf][:2], atol=1e-6)

@@ -56,6 +56,44 @@ def test_slice_index_shapes():
     assert chip_smoke.slice_index_shape("B") == (2048, 1024)
 
 
+def test_slices_c_and_d():
+    """Slice C is mono and slice D stereo with rectification and xyz BA,
+    both at 752x480 with the relocalizer on and unpaced; slice D's frame
+    script is test_pipeline_relocalizes_after_blackout's: 25 frames, 3
+    blank ones, the revisit of frame 20, then frames 21-29."""
+    import types
+
+    import numpy as np
+
+    import chip_smoke
+    from ov2slam_torch.io import synthetic
+    from ov2slam_torch.utils import profiles
+
+    for name, stereo in (("C", False), ("D", True)):
+        kw = chip_smoke.slice_configs()[name][0]
+        assert (kw["width"], kw["height"], kw["stereo"]) == (752, 480, stereo)
+        cfg = chip_smoke.slice_config(name, synthetic.stream_sequence(
+            **kw, realism=None), profiles)
+        assert cfg.use_loop_closer and cfg.use_relocalizer and cfg.do_full_ba
+        assert cfg.reloc_min_interval_s == 0.0 and cfg.use_clahe
+        assert cfg.stereo == stereo
+        assert cfg.do_stereo_rect == (not cfg.use_inv_depth) == stereo
+
+    n = 40
+    seq = types.SimpleNamespace(
+        images_left=[np.full((4, 6), i, np.float32) for i in range(n)],
+        images_right=[np.full((4, 6), -i, np.float32) for i in range(n)],
+        times=np.arange(n) * 0.05, width=6, height=4)
+    frames = chip_smoke.slice_frames("D", seq)
+    assert len(frames) == 38
+    assert [f[3] for f in frames] == (list(range(25)) + [None] * 3 + [20]
+                                      + list(range(21, 30)))
+    assert all(not f[0].any() and not f[1].any() for f in frames[25:28])
+    times = [f[2] for f in frames]
+    assert all(b > a for a, b in zip(times, times[1:]))
+    assert len(chip_smoke.slice_frames("C", seq)) == n
+
+
 def test_package_imports_without_cuda():
     # a fresh interpreter with CUDA hidden: every module imports, and
     # nothing imports jax along the way
@@ -103,20 +141,24 @@ def test_entry_points_default_to_gpu(monkeypatch):
 
 
 def test_unsupported_configurations_raise():
+    """Only the pipelined front end is outside the port: mono, the
+    relocalizer, xyz BA, full BA and image rectification construct."""
     from ov2slam_torch.io.synthetic import generate_sequence
     from ov2slam_torch.models.slam import SlamManager
 
     seq = generate_sequence(n_frames=2, width=96, height=64, n_points=50)
+    with pytest.raises(NotImplementedError, match="pipelined_frontend"):
+        SlamManager(seq.make_config(pipelined_frontend=True), device="cpu")
     for over in (dict(use_relocalizer=True, use_loop_closer=True),
-                 dict(pipelined_frontend=True, use_relocalizer=False),
-                 dict(do_full_ba=True, use_relocalizer=False),
-                 dict(use_inv_depth=False, use_relocalizer=False)):
-        with pytest.raises(NotImplementedError):
-            SlamManager(seq.make_config(**over), device="cpu")
+                 dict(do_full_ba=True), dict(use_inv_depth=False),
+                 dict(do_stereo_rect=True)):
+        slam = SlamManager(seq.make_config(**over), device="cpu")
+        assert (slam.relocalizer is not None) == bool(
+            over.get("use_relocalizer"))
     mono = generate_sequence(n_frames=2, stereo=False, width=96, height=64,
                              n_points=50)
-    with pytest.raises(NotImplementedError, match="mono"):
-        SlamManager(mono.make_config(use_relocalizer=False), device="cpu")
+    slam = SlamManager(mono.make_config(), device="cpu")
+    assert slam.cam_r is None and not slam.frontend.initialized
 
 
 def test_cuda_kernel_wrapper_refuses_cpu_fallback():
