@@ -22,9 +22,25 @@ Phases (any failure exits non-zero):
      scale-aligned ATE, resets and the result files;
   7. slice D: stereo relocalization at 752x480 (the blackout script of
      test_relocalization.py), xyz local BA, image rectification, full BA —
-     gates on the blackout, the relocalization and the last frame.
+     gates on the blackout, the relocalization and the last frame;
+  8. slice E: slice B's sequence and config through ``AsyncSlamManager``
+     with the device-chained front end (depth 2), fed flat out — keyframe
+     processing and the loop closer, with the scorer, on the worker's
+     thread and CUDA stream. Gates: 0 worker errors, 0 resets, ATE < 0.15
+     m (test_pipeline.py::test_async_stereo_slam's gate), at least one
+     scorer launch from the worker's thread and stream, the worker joined;
+  9. slice F: test_pipeline.py::test_async_paced_arrival_bench_conditions
+     (752x480 arc with photometric realism, ``fast`` profile, chained at
+     depth 2, 30 warm frames, then paced at 0.75 x the flat-out rate with
+     frames dropped when behind). Gates: <= 10% of the paced frames
+     dropped, ATE < 0.05 m, 0 worker errors. Its loop closer is off, so it
+     launches no kernel.
+For E and F it also prints the synchronizing CUDA calls that
+``torch.cuda.set_sync_debug_mode("warn")`` reports on the front end's
+thread during 10 chained dispatches, and the worker stream's handle beside
+the (thread, stream) of every scorer launch.
 Then the scorer at each slice's main-path shapes (for A and B the
-populated prefix of the index, every M it took; for C and D every
+populated prefix of the index, every M it took; for C, D and E every
 (M, N, Nq) the slice launched, on the loop-closure and the relocalizer
 path) against its plain versions and timed at the last, one JSON line of
 kernel records, the card's name and power limit, and the final
@@ -64,6 +80,16 @@ JAX_SLICE_D = dict(reloc_trans_m=0.0359222946076875,
                    reloc_rot_rad=0.033375023721423654,
                    last_err_m=0.052543958350458615,
                    fullba_ate_m=0.001670157967045391)
+# slice E gate: test_pipeline.py::test_async_stereo_slam's; the JAX
+# package's synchronous manager with the same chained front end on the same
+# sequence and config (reference_runs.py E, CPU) is printed beside it
+SLICE_E_MAX_ATE = 0.15
+JAX_SLICE_E_SYNC_ATE = 0.009868946440764895
+# slice F gates: test_pipeline.py::test_async_paced_arrival_bench_conditions
+SLICE_F_MAX_ATE = 0.05
+SLICE_F_MAX_DROP_SHARE = 0.10
+SLICE_F_WARM = 30
+SYNC_COUNT_DISPATCHES = 10
 RESULT_FILES = ("ov2slam_traj.txt", "ov2slam_kfs_traj.txt",
                 "ov2slam_traj_kitti.txt", "ov2slam_fullba_kfs_traj.txt",
                 "ov2slam_full_traj_wlc.txt", "ov2slam_full_traj_wlc_opt.txt")
@@ -100,7 +126,14 @@ def slice_configs():
          dict(reloc_min_interval_s=0.0, use_inv_depth=False,
               do_stereo_rect=True, do_full_ba=True),
          "accurate")
-    return {"A": a, "B": b, "C": c, "D": d}
+    # slice E: slice B through the asynchronous manager with the chained
+    # front end; slice F: the paced-arrival test's stream and profile
+    e = (b[0], dict(b[1], pipelined_frontend=True, pipeline_depth=2),
+         "accurate")
+    f = (dict(n_frames=110, stereo=True, width=752, height=480,
+              n_points=8000, seed=0, kind="arc", speed=0.05),
+         dict(pipelined_frontend=True, pipeline_depth=2), "fast")
+    return {"A": a, "B": b, "C": c, "D": d, "E": e, "F": f}
 
 
 def slice_config(name: str, seq, profiles_module):
@@ -170,7 +203,7 @@ def slice_outcome(name: str, slam, seq, trace, ate_rmse, lie_np,
         res["closures"] = slam.loop_closer.n_closures
     if slam.relocalizer is not None:
         res["n_relocs"] = slam.relocalizer.n_relocs
-    if name in ("A", "B"):
+    if name in ("A", "B", "E"):
         res["ate_m"] = ate_rmse(poses, seq.gt_poses, align_scale=False)
         res["end_err_m"] = float(np.linalg.norm(poses[-1, 4:7]
                                                 - seq.gt_poses[-1, 4:7]))
@@ -474,7 +507,9 @@ def time_compaction(dev, capacity=2048, N=1024):
                 rows_kept=kept)
 
 
-def run_slice(name: str, dev):
+def run_slice(name: str, dev, seq=None):
+    """Slice ``name`` through the synchronous ``SlamManager`` (``seq``: a
+    rendered sequence to reuse); returns its figures and the sequence."""
     import tempfile
 
     import numpy as np
@@ -488,7 +523,10 @@ def run_slice(name: str, dev):
     from ov2slam_torch.utils.profiler import Profiler
 
     t0 = time.perf_counter()
-    seq, cfg = make_slice(name, synthetic, profiles)
+    if seq is None:
+        seq, cfg = make_slice(name, synthetic, profiles)
+    else:
+        cfg = slice_config(name, seq, profiles)
     t_render = time.perf_counter() - t0
     slam = SlamManager(cfg, device=dev)
     prof = Profiler.instance()
@@ -539,7 +577,260 @@ def run_slice(name: str, dev):
         fail(f"slice {name}: the plain scorer ran on cuda")
     if name in ("A", "B") and slam.n_resets != 0:
         fail(f"slice {name}: {slam.n_resets} tracking resets")
+    return res, seq
+
+
+def paced_arrival(slam, frames, n_warm=SLICE_F_WARM, pace_share=0.75):
+    """The paced-arrival protocol of test_pipeline.py::
+    test_async_paced_arrival_bench_conditions: ``n_warm`` frames flat out,
+    then the rest paced at ``pace_share`` x the measured steady rate (the
+    median of the warm frames after the tenth), with
+    ``backpressure_wait_s`` = 2 x the interval, and the frames that fall
+    more than one interval behind dropped (`force_realtime`). Returns
+    (frames dropped, pace fps, flat-out median seconds per frame)."""
+    import numpy as np
+
+    walls = []
+    for left, right, t in frames[:n_warm]:
+        t0 = time.perf_counter()
+        slam.process_frame(left, right, t)
+        walls.append(time.perf_counter() - t0)
+    med = float(np.median(walls[10:]))
+    pace_fps = pace_share / max(med, 1e-6)
+    interval = 1.0 / pace_fps
+    slam.cfg.backpressure_wait_s = 2.0 * interval
+    n_dropped = 0
+    t_all0 = time.perf_counter()
+    i = n_warm
+    while i < len(frames):
+        t_sched = t_all0 + (i - n_warm) * interval
+        now = time.perf_counter()
+        if now < t_sched:
+            time.sleep(t_sched - now)
+        elif now > t_sched + interval and i < len(frames) - 1:
+            n_behind = min(int((now - t_sched) / interval),
+                           len(frames) - 1 - i)
+            i += n_behind
+            n_dropped += n_behind
+        left, right, t = frames[i]
+        slam.process_frame(left, right, t)
+        i += 1
+    slam.flush()
+    return n_dropped, pace_fps, med
+
+
+class DispatchSyncCounter:
+    """Counts the synchronizing CUDA calls that
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports during chained
+    dispatches ``first`` ... ``first + n - 1`` of the front end ``fe``
+    (the dispatch only, not the resolve), on the front end's own thread;
+    what the worker thread reports in the same windows is counted apart.
+    Each report is kept with the source line that made the call."""
+
+    def __init__(self, fe, first: int, n: int = SYNC_COUNT_DISPATCHES):
+        import collections
+        import threading
+
+        self.first, self.n = first, n
+        self.seen = self.counted = 0
+        self.syncs = self.worker_syncs = 0
+        self.sites = collections.Counter()
+        self._orig = fe._dispatch_chained
+        self._thread = threading.get_ident()
+        fe._dispatch_chained = self._dispatch
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        import threading
+
+        if "synchroniz" not in str(message):
+            return
+        if threading.get_ident() == self._thread:
+            self.syncs += 1
+            self.sites[f"{os.path.relpath(filename, HERE)}:{lineno}"] += 1
+        else:
+            self.worker_syncs += 1
+
+    def _dispatch(self, img, t):
+        import warnings
+
+        import torch
+
+        k = self.seen
+        self.seen += 1
+        if not self.first <= k < self.first + self.n:
+            return self._orig(img, t)
+        on_card = torch.cuda.is_available()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            if on_card:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return self._orig(img, t)
+            finally:
+                if on_card:
+                    torch.cuda.set_sync_debug_mode(0)
+                self.counted += 1
+
+    def result(self):
+        return dict(dispatches=self.counted, first=self.first,
+                    syncs=self.syncs,
+                    syncs_per_dispatch=self.syncs / max(1, self.counted),
+                    worker_syncs_in_window=self.worker_syncs,
+                    sites=dict(self.sites.most_common(8)))
+
+
+def run_async_slice(name: str, dev, seq=None):
+    """Slice E (``seq``: slice B's rendered sequence, else rendered here)
+    or F through ``AsyncSlamManager``; returns the slice's figures."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.device import synchronize
+    from ov2slam_torch.io import synthetic
+    from ov2slam_torch.models.pipeline import AsyncSlamManager
+    from ov2slam_torch.ops import hamming
+    from ov2slam_torch.utils import profiles
+    from ov2slam_torch.utils.evaluation import ate_rmse
+    from ov2slam_torch.utils.profiler import Profiler
+
+    t0 = time.perf_counter()
+    kw = slice_configs()[name][0]
+    if name == "F":
+        # rendered up front, as the test does: the pacing times SLAM only
+        seq = synthetic.stream_sequence(**kw,
+                                        realism=synthetic.DEFAULT_REALISM)
+        frames = list(seq)
+    else:
+        if seq is None:
+            seq = synthetic.generate_sequence(**kw)
+        frames = [f[:3] for f in slice_frames(name, seq)]
+    cfg = slice_config(name, seq, profiles)
+    t_render = time.perf_counter() - t0
+    slam = AsyncSlamManager(cfg, device=dev)
+    worker_stream = getattr(slam.worker_stream, "cuda_stream", None)
+    prof = Profiler.instance()
+    prof.reset()
+    # counts cover exactly this slice's run of the main path
+    hamming.match_scores_bits.launches = 0
+    hamming.match_scores_bits.shapes.clear()
+    hamming.match_scores_bits.origins.clear()
+    hamming.match_scores_bits_plain.cuda_runs = 0
+    hamming.match_scores_plain.cuda_runs = 0
+    syncs = DispatchSyncCounter(slam.frontend, first=10 if name == "F"
+                                else 20)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    paced = None
+    try:
+        if name == "F":
+            paced = paced_arrival(slam, frames)
+        else:
+            for left, right, t in frames:
+                slam.process_frame(left, right, t)
+        # resolves the frames in flight, registers the deferred keyframe
+        # and waits for the worker
+        times, poses = slam.estimated_trajectory()
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        slam.close()
+    joined = not slam._worker.is_alive()
+    launches = hamming.match_scores_bits.launches
+    shapes = dict(hamming.match_scores_bits.shapes)
+    origins = dict(hamming.match_scores_bits.origins)
+    plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
+                  + hamming.match_scores_plain.cuda_runs)
+    if poses.shape != (len(times), 7) or not np.isfinite(poses).all():
+        fail(f"slice {name}: trajectory not finite / wrong shape")
+    gt_t, gt = np.asarray(seq.times), np.asarray(seq.gt_poses)
+    idx = np.clip(np.searchsorted(gt_t, times), 0, len(gt) - 1)
+    poses = poses.astype(np.float64)
+    res = dict(slice=name, width=seq.width, height=seq.height,
+               frames=len(frames), processed=int(len(times)),
+               render_s=round(t_render, 3), wall_s=wall,
+               fps=len(times) / wall,
+               ate_m=ate_rmse(poses, gt[idx], align_scale=False),
+               end_err_m=float(np.linalg.norm(poses[-1, 4:7]
+                                              - gt[idx[-1], 4:7])),
+               keyframes=int(slam.map._kf_seq_counter),
+               resets=int(slam.n_resets),
+               closures=(slam.loop_closer.n_closures
+                         if slam.loop_closer is not None else None),
+               folds=slam.n_folded, deferrals=slam.n_deferred,
+               worker_errors=slam.n_worker_errors, worker_joined=joined,
+               worker_stream=worker_stream,
+               scorer_launches=launches,
+               scorer_shapes=[[*k, v] for k, v in sorted(shapes.items())],
+               scorer_origins=[[th, st, n] for (th, st), n in
+                               sorted(origins.items())],
+               worker_scorer_launches=origins.get(("kf-worker",
+                                                   worker_stream), 0),
+               scorer_plain_runs_on_cuda=plain_cuda,
+               sync_debug=syncs.result(), max_kps=cfg.max_kps,
+               lc_recent_mask=cfg.lc_recent_mask)
+    if slam.loop_closer is not None:
+        res.update(index_rows=len(slam.loop_closer.index.kf_ids),
+                   index_cube_bytes=slam.loop_closer.index._cube.numel())
+    if paced is not None:
+        n_dropped, pace_fps, med = paced
+        res.update(dropped=n_dropped, paced_frames=len(frames) - SLICE_F_WARM,
+                   pace_fps=pace_fps, flat_out_fps=1.0 / med)
+    print(f"[slice {name}] " + json.dumps(res), flush=True)
+    print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
+          flush=True)
     return res
+
+
+def gate_async(r, b=None) -> None:
+    """Slice E's or F's gates (see the module docstring)."""
+    name = r["slice"]
+    if r["worker_errors"] != 0:
+        fail(f"slice {name}: {r['worker_errors']} worker errors")
+    if not r["worker_joined"]:
+        fail(f"slice {name}: close() did not join the worker")
+    if r["scorer_plain_runs_on_cuda"] != 0:
+        fail(f"slice {name}: the plain scorer ran on cuda")
+    sd = r["sync_debug"]
+    print(f"[slice {name}] synchronizing calls reported by "
+          f"set_sync_debug_mode('warn') on the front end's thread during "
+          f"{sd['dispatches']} chained dispatches: {sd['syncs']} "
+          f"({sd['syncs_per_dispatch']:.2f} per dispatch; the worker "
+          f"thread's in the same windows: {sd['worker_syncs_in_window']}); "
+          f"sites {sd['sites']}", flush=True)
+    print(f"[slice {name}] worker stream {r['worker_stream']}; scorer "
+          f"launches by (thread, stream): {r['scorer_origins']}",
+          flush=True)
+    if name == "E":
+        if sd["dispatches"] != SYNC_COUNT_DISPATCHES:
+            fail(f"slice E: {sd['dispatches']} chained dispatches counted")
+        if r["resets"] != 0:
+            fail(f"slice E: {r['resets']} tracking resets")
+        gate("E", "ATE (m)", r["ate_m"], SLICE_E_MAX_ATE)
+        if r["worker_scorer_launches"] < 1:
+            fail("slice E: no scorer launch from the worker's thread and "
+                 "stream")
+        print(f"[slice E] async: {r['fps']:.4f} fps, ATE {r['ate_m']} m "
+              f"(gate {SLICE_E_MAX_ATE}; the JAX package's synchronous "
+              f"manager with the same chained front end: "
+              f"{JAX_SLICE_E_SYNC_ATE} m), {r['keyframes']} keyframes, "
+              f"{r['closures']} closures, {r['folds']} folds, "
+              f"{r['deferrals']} deferrals | slice B sync: "
+              f"{b['fps']:.4f} fps, ATE {b['ate_m']} m, {b['keyframes']} "
+              f"keyframes, {b['closures']} closures", flush=True)
+    else:
+        if r["scorer_launches"] != 0:
+            fail(f"slice F: {r['scorer_launches']} scorer launches with the "
+                 "loop closer off")
+        gate("F", "dropped frames", r["dropped"],
+             SLICE_F_MAX_DROP_SHARE * r["paced_frames"])
+        gate("F", "ATE (m)", r["ate_m"], SLICE_F_MAX_ATE)
+        print(f"[slice F] paced at {r['pace_fps']:.4f} fps (0.75 x the "
+              f"flat-out {r['flat_out_fps']:.4f}), {r['dropped']} of "
+              f"{r['paced_frames']} paced frames dropped, ATE "
+              f"{r['ate_m']} m; the fast profile has the loop closer off, "
+              "so this slice launches no kernel", flush=True)
 
 
 def gate(name: str, what: str, value, limit) -> None:
@@ -631,6 +922,7 @@ def main() -> int:
     from ov2slam_torch import kernels
     from ov2slam_torch.device import resolve_device
 
+    t_start = time.perf_counter()
     dev = resolve_device(None)
     smi = nvidia_smi_line()
     print(f"[device] {smi} | torch {torch.__version__} cuda "
@@ -647,7 +939,7 @@ def main() -> int:
     rows, max_err = phase_kernels(dev)
     compaction = time_compaction(dev)
 
-    a = run_slice("A", dev)
+    a, _ = run_slice("A", dev)
     if a["closures"] < 1:
         fail("slice A: loop never closed")
     if not a["ate_m"] < SLICE_A_MAX_ATE:
@@ -656,15 +948,20 @@ def main() -> int:
         fail(f"slice A: endpoint error {a['end_err_m']:.4f} m "
              f">= {SLICE_A_MAX_END_ERR}")
 
-    b = run_slice("B", dev)
+    b, seq_b = run_slice("B", dev)
     gate_b = max(0.09, 1.25 * JAX_SLICE_B_ATE)
     if not b["ate_m"] <= gate_b:
         fail(f"slice B: ATE {b['ate_m']:.4f} m > {gate_b:.4f}")
 
-    c = run_slice("C", dev)
+    c, _ = run_slice("C", dev)
     gate_slice_c(c)
-    d = run_slice("D", dev)
+    d, _ = run_slice("D", dev)
     gate_slice_d(d)
+    e = run_async_slice("E", dev, seq=seq_b)
+    del seq_b
+    gate_async(e, b)
+    f = run_async_slice("F", dev)
+    gate_async(f)
 
     # each path's figures are at its last main-path query; the record's
     # top-level ones are slice B's, its launches those of all four
@@ -676,9 +973,13 @@ def main() -> int:
         paths.append(dict(slice=res["slice"], path="loop closure",
                           launches=res["scorer_launches"], **main,
                           index_cube_bytes=res["index_cube_bytes"]))
-    for res in (c, d):
+    for res in (c, d, e):
         more, err = launched_shapes_scorer(res, dev)
         max_err = max(max_err, err)
+        if res is e:
+            for row in more:
+                row.update(thread_streams=e["scorer_origins"],
+                           worker_stream=e["worker_stream"])
         paths += more
     top = {k: paths[0][k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")}
@@ -686,9 +987,11 @@ def main() -> int:
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
-        launches=sum(r["scorer_launches"] for r in (a, b, c, d)),
+        launches=sum(r["scorer_launches"] for r in (a, b, c, d, e, f)),
         max_abs_err=max_err, library_ms=None, **top, paths=paths,
         phase3=rows, index_compaction=compaction)]}
+    print(f"[chip_smoke] all phases passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,6 +19,8 @@ samples from a ``torch.Generator``, or takes them explicitly (``idx5``,
 
 from __future__ import annotations
 
+import functools
+
 from typing import Optional
 
 import numpy as _np
@@ -111,6 +113,7 @@ def _mul_table(ea, eb, ec):
     return T
 
 
+@functools.lru_cache(maxsize=None)
 def _conv_table(la, lb, out_len):
     T = _np.zeros((la, lb, out_len), _np.float32)
     for i in range(la):
@@ -124,8 +127,20 @@ _T112 = _mul_table(_E1, _E1, _E2)   # deg1 * deg1 -> deg2
 _T213 = _mul_table(_E2, _E1, _E3)   # deg2 * deg1 -> deg3
 
 
+_TABLES = {}
+
+
 def _tab(T, ref):
-    return torch.as_tensor(T, dtype=ref.dtype, device=ref.device)
+    """``T`` (one of this module's constant tables) on ``ref``'s device and
+    dtype, uploaded once per (table, device, dtype): an upload per call
+    would synchronize the stream. The cache keeps ``T`` alive, so its id
+    is not reused while cached."""
+    key = (id(T), ref.device, ref.dtype)
+    hit = _TABLES.get(key)
+    if hit is None:
+        hit = _TABLES[key] = (T, torch.as_tensor(T, dtype=ref.dtype,
+                                                 device=ref.device))
+    return hit[1]
 
 
 def _pmul(a, b, T):
@@ -384,8 +399,10 @@ def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
     inl = (d2 < th) & valid_mask[None, :]
     quality = torch.where(inl, 1.0 - d2 / th, torch.zeros_like(d2)).sum(-1)
     quality = torch.where(cand_ok, quality, torch.full_like(quality, -1.0))
-    best = torch.argmax(quality)
-    return E[best], inl[best], inl[best].sum()
+    # a one-element index tensor: a 0-d one would be read on the host
+    best = torch.argmax(quality).reshape(1)
+    inl_best = inl[best][0]
+    return E[best][0], inl_best, inl_best.sum()
 
 
 def relative_pose_ransac(gen, x_l, x_r, valid_mask, focal, err_th_px,

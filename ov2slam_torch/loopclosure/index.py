@@ -13,8 +13,12 @@ The store on the device is a ±1 cube, (capacity, N, 256) int8 (+1 or -1
 per descriptor bit, 0 for invalid rows; 512 MiB at 2048 keyframes of 1024
 descriptors), as the JAX package keeps it for its TPU kernel. ``add``
 writes one row in place; compaction rewrites the kept rows from the packed
-host copy and zeroes the rest. A query scores only the populated prefix of the cube. The same code
-runs on every device. Temporal-consistency grouping ("islands") and the
+host copy and zeroes the rest. A query scores only the populated prefix of
+the cube. The same code runs on every device. The cube may be written on
+one CUDA stream (the asynchronous manager's worker adds keyframes) and
+scored on another (the relocalizer on the front end's thread): an event
+recorded after every write and after every scoring launch orders the two
+streams both ways. Temporal-consistency grouping ("islands") and the
 recent-frame mask of the loop-closure ``query`` are host logic; the
 relocalizer's ``query_best`` scores every stored row and takes the top k.
 """
@@ -26,7 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import record_event, resolve_device, wait_event
 from ..ops.hamming import match_scores_bits, unpack_pm1
 
 _CHUNK = 16
@@ -57,6 +61,16 @@ class PlaceIndex:
         # an entry is stale when the slot's current seq no longer matches
         self.kf_seqs: List[int] = []
         self._last_candidate: Optional[int] = None
+        # events after the last cube write and the last scoring launch
+        self._written = None
+        self._read = None
+
+    def _begin_write(self):
+        """Order a cube write after the last scoring launch."""
+        wait_event(self._read, self.device)
+
+    def _end_write(self):
+        self._written = record_event(self.device)
 
     def add(self, kfid: int, desc: np.ndarray, valid: np.ndarray,
             seq: Optional[int] = None, seq_lookup=None):
@@ -69,21 +83,25 @@ class PlaceIndex:
             self._dev_valid = torch.zeros((self.capacity, N),
                                           dtype=torch.bool,
                                           device=self.device)
+        self._begin_write()
         if len(self.kf_ids) >= self.capacity:
             self._compact(seq_lookup)
         i = len(self.kf_ids)
         self._desc[i] = desc
         self._valid[i] = valid
         self._write_rows(slice(i, i + 1))
+        self._end_write()
         self.kf_ids.append(kfid)
         self.kf_seqs.append(-1 if seq is None else int(seq))
 
     def clear(self):
         """Drop every entry; the device cube is kept and zeroed."""
         if self._cube is not None:
+            self._begin_write()
             self._valid[:] = False
             self._cube.zero_()
             self._dev_valid.zero_()
+            self._end_write()
         self.kf_ids = []
         self.kf_seqs = []
         self._last_candidate = None
@@ -145,9 +163,17 @@ class PlaceIndex:
         qv = self._to_dev(np.asarray(valid, bool))
         q = unpack_pm1(
             self._to_dev(np.asarray(desc, np.uint32).view(np.int32)), qv)
+        wait_event(self._written, self.device)
+        if self.device.type == "cuda":
+            # the cube may be scored on another stream than the one it was
+            # allocated on
+            stream = torch.cuda.current_stream(self.device)
+            self._cube.record_stream(stream)
+            self._dev_valid.record_stream(stream)
         scores = match_scores_bits(self._cube[:usable],
                                    self._dev_valid[:usable], q, qv,
                                    self.match_bits)
+        self._read = record_event(self.device)
         return scores.cpu().numpy()
 
     def query_best(self, desc: np.ndarray, valid: np.ndarray,

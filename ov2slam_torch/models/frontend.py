@@ -1,18 +1,23 @@
 """Visual front-end: per-frame tracking state machine.
 
-Port of the synchronous path of ``ov2slam_tpu/models/frontend.py`` (the
-reference's `VisualFrontEnd`): CLAHE+pyramid preprocessing, constant-
-velocity motion model, prior-guided forward-backward KLT, epipolar 2d-2d
-outlier gating, P3P + motion-only PnP pose computation, and keyframe-need
-heuristics.
+Port of ``ov2slam_tpu/models/frontend.py`` (the reference's
+`VisualFrontEnd`): CLAHE+pyramid preprocessing, constant-velocity motion
+model, prior-guided forward-backward KLT, epipolar 2d-2d outlier gating,
+P3P + motion-only PnP pose computation, and keyframe-need heuristics.
 
 The current frame's keypoints live in fixed-capacity host slot arrays (px,
-undistorted px, landmark ids, valid mask); each frame runs one
-``fused_track_step`` on the device and reads its result back once.
+undistorted px, landmark ids, valid mask). Each frame is one dispatch
+(:meth:`FrontEnd.dispatch_frame`: one packed upload, one device step, one
+packed readback started into pinned memory) and one resolve
+(:meth:`FrontEnd.resolve_pending`: wait for that frame's event, apply the
+result). The synchronous path resolves at once; the pipelined manager
+resolves ``pipeline_depth`` frames late, and at depth >= 2 the tracking
+recurrence itself stays on the device (``fused_track_step_chained``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Optional, Tuple
 
@@ -23,8 +28,12 @@ from ..core.camera import Camera
 from ..core.image import build_pyramid, clahe
 from ..geometry.pnp import p3p_ransac
 from ..solvers.pnp_refine import pnp_refine
-from .frontend_step import CalibArrays, fused_detect_describe, \
-    fused_track_step
+from .frontend_step import (CalibArrays, advance_chain_patch,
+                            fused_detect_describe, fused_track_step,
+                            fused_track_step_chained, pack_chain_state,
+                            pack_lm_static, pack_track_out, pack_track_state,
+                            patch_chain_pose_delta, patch_chain_rows,
+                            unpack_track_out, unpack_track_state)
 from ..utils import lie_np
 from ..utils.config import SlamConfig
 from ..utils.profiler import Profiler
@@ -38,6 +47,80 @@ def to_u8(img: np.ndarray) -> np.ndarray:
     if img.size and float(img.max()) <= 1.5:
         img = img * 255.0
     return np.clip(np.round(img), 0, 255).astype(np.uint8)
+
+
+class Staging:
+    """A ring of host staging slots for the per-frame copies.
+
+    On CUDA each slot's buffers are pinned, its uploads and readbacks are
+    ``non_blocking`` copies on the current stream, and one event recorded
+    after the slot's last copy orders them: :meth:`next` waits on a slot's
+    event before its buffers are written again, and :meth:`read` before
+    they are read. With ``pipeline_depth + 1`` slots a dispatch never waits
+    on a frame still in flight. On the CPU the copies are plain and there
+    are no events."""
+
+    def __init__(self, device: torch.device, n: int):
+        self.device = device
+        self.cuda = device.type == "cuda"
+        self._bufs = [dict() for _ in range(n)]
+        self._events = [None] * n
+        self._i = 0
+
+    def next(self) -> int:
+        """The next slot, once its earlier copies have completed."""
+        k = self._i
+        self._i = (k + 1) % len(self._bufs)
+        self.wait(k)
+        return k
+
+    def _host(self, k: int, name: str, shape, dtype) -> torch.Tensor:
+        buf = self._bufs[k].get(name)
+        if buf is None or buf.shape != tuple(shape) or buf.dtype != dtype:
+            buf = torch.empty(shape, dtype=dtype, pin_memory=self.cuda)
+            self._bufs[k][name] = buf
+        return buf
+
+    def upload(self, k: int, name: str, arr: np.ndarray) -> torch.Tensor:
+        """``arr`` on the device, through slot ``k``'s buffer ``name``."""
+        arr = np.ascontiguousarray(arr)
+        if not self.cuda:
+            return torch.from_numpy(arr.copy()).to(self.device)
+        buf = self._host(k, name, arr.shape, torch.from_numpy(arr[:0]).dtype)
+        buf.numpy()[...] = arr
+        return buf.to(self.device, non_blocking=True)
+
+    def download(self, k: int, name: str, t: torch.Tensor) -> None:
+        """Start the copy of ``t`` into slot ``k``'s buffer ``name``."""
+        if not self.cuda:
+            self._bufs[k][name] = t.detach().clone()
+            return
+        self._host(k, name, t.shape, t.dtype).copy_(t, non_blocking=True)
+
+    def record(self, k: int) -> None:
+        """Mark the end of slot ``k``'s copies on the current stream."""
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self._events[k] = ev
+
+    def wait(self, k: int) -> None:
+        """Block until slot ``k``'s copies have completed (its own event
+        only, never the device or a stream)."""
+        ev = self._events[k]
+        if ev is not None:
+            ev.synchronize()
+            self._events[k] = None
+
+    def read(self, k: int, name: str) -> np.ndarray:
+        """A host copy of slot ``k``'s buffer ``name``, after its event."""
+        self.wait(k)
+        return self._bufs[k][name].numpy().copy()
+
+    def clear(self) -> None:
+        """Forget every slot's pending copies (after waiting for them)."""
+        for k in range(len(self._bufs)):
+            self.wait(k)
 
 
 class MotionModel:
@@ -122,6 +205,35 @@ class FrontEnd:
         self.last_n_3d = 0
         self._calib = CalibArrays.from_camera(cam_l)
         self._fisheye = cam_l.model == "fisheye"
+        # staging for the per-frame copies: pipeline_depth + 1 slots, so a
+        # dispatch never overwrites a frame still in flight; a keyframe's
+        # detection and its chain patch have their own
+        depth = max(1, cfg.pipeline_depth) if cfg.pipelined_frontend else 1
+        self._stage = Staging(self.device, depth + 1)
+        self._stage_kf = Staging(self.device, 2)
+        N = cfg.max_kps
+        self._state_buf = np.zeros((N + 2, 8), np.float32)
+        # in-flight frame records for the dispatch/resolve split (FIFO; the
+        # synchronous path keeps it at length <= 1)
+        self._pendings = collections.deque()
+        # slot-birth bookkeeping: a pending dispatched BEFORE a slot was
+        # (re)detected carries no information about it — its resolve must
+        # not touch that slot (depth >= 2 keeps several frames in flight
+        # across keyframe insertions)
+        self._dispatch_seq = 0
+        self._resolved_seq = 0       # seq of the last resolved frame
+        self._slot_birth = np.zeros(N, np.int64)
+        # device-chained recurrence state (pipeline_depth >= 2): the chain
+        # tensor and the latest dispatched frame's pyramid
+        self._chain_S = None
+        self._chain_pyr = None
+        self._chain_patch = None     # (N, 6) [row, px, und, status] tensor
+        self._chain_delta = None     # host pose correction not yet applied
+        self._chain_last_time = None
+        self._chain_dt = 0.0
+        # rows 0..N: the per-slot map view; row N+1: [delta(7) | dt ratio]
+        self._lm_buf = np.zeros((N + 2, 8), np.float32)
+        self._chain_buf = np.zeros((N + 2, 8), np.float32)
         # from-KF tracking (`btrack_keyframetoframe`): the reference
         # keyframe's pyramid, captured at detection time
         self._kf_pyr = None
@@ -130,13 +242,6 @@ class FrontEnd:
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
-
-    def upload(self, img) -> torch.Tensor:
-        """Frame → f32 tensor on the device (host frames go through
-        :func:`to_u8` first; a tensor is taken as it is)."""
-        if isinstance(img, np.ndarray):
-            img = self._dev(to_u8(img))
-        return img.to(torch.float32)
 
     def preprocess(self, img) -> None:
         """CLAHE + pyramid; swaps prev/cur. The frame is taken as f32
@@ -148,18 +253,57 @@ class FrontEnd:
         self.prev_pyr = self.cur_pyr
         self.cur_pyr = tuple(build_pyramid(im, self.cfg.klt_levels))
 
+    def _upload_image(self, k: int, img) -> torch.Tensor:
+        """The frame on the device as uint8 through staging slot ``k``
+        (host frames go through :func:`to_u8`); a device tensor (rectified
+        or undistorted) is taken as it is."""
+        if isinstance(img, np.ndarray):
+            return self._stage.upload(k, "img", to_u8(img))
+        return img
+
     # ------------------------------------------------------------------ #
 
     def track_frame(self, img, time: float) -> bool:
         """Process one left frame; returns True if it should become a
-        keyframe (`visualTracking`, `visual_front_end.cpp:40-128`)."""
+        keyframe (`visualTracking`, `visual_front_end.cpp:40-128`).
+
+        Synchronous path: dispatch + immediate resolve. The pipelined
+        manager calls :meth:`dispatch_frame` / :meth:`resolve_pending`
+        separately, so a frame's readback overlaps the next frames'
+        dispatches."""
         self.prof.start("0.Full-Front_End")
         try:
-            return self._track_frame(img, time)
+            if self.dispatch_frame(img, time) is None:
+                return True              # bootstrap path resolved inline
+            return self.resolve_pending()
         finally:
             self.prof.stop("0.Full-Front_End")
 
-    def _track_frame(self, img, time: float) -> bool:
+    @property
+    def has_pending(self) -> bool:
+        return len(self._pendings) > 0
+
+    @property
+    def n_pending(self) -> int:
+        return len(self._pendings)
+
+    def wait_pending(self):
+        """Wait for the OLDEST in-flight frame's readback WITHOUT applying
+        it (so that the blocking wait can happen outside any map lock —
+        the copy touches no shared state). Waits on that frame's event
+        only."""
+        if self._pendings:
+            self._stage.wait(self._pendings[0]["slot"])
+
+    def dispatch_frame(self, img, time: float):
+        """Upload + dispatch the fused step for one frame WITHOUT reading
+        the result back. Returns the pending record (resolved later by
+        :meth:`resolve_pending`), or None when the frame took the inline
+        bootstrap path (the caller treats it as an immediate KF request).
+
+        With ``pipeline_depth >= 2`` the dispatch rides the device-chained
+        recurrence (host slot state may trail by several frames); at
+        depth 1 it requires the previous frame to be resolved."""
         cfg = self.cfg
         f = self.frame
 
@@ -167,7 +311,9 @@ class FrontEnd:
         if self.map.n_keyframes == 0 or (f.kf_id < 0 and f.n_valid == 0):
             # bootstrap (or post-reset re-bootstrap): this frame becomes a
             # keyframe; pose = identity on first start, else keep the last
-            # estimate so the map stays consistent
+            # estimate so the map stays consistent. The flag exempts this
+            # keyframe from the starvation veto — it has zero tracks BY
+            # CONSTRUCTION (detection happens inside keyframe creation).
             f.time = time
             self.bootstrap_kf = True
             self.preprocess(img)
@@ -175,7 +321,12 @@ class FrontEnd:
                 f.T_wc = lie_np.pose_identity().astype(np.float32)
             self.motion.update(f.T_wc.astype(np.float64), time)
             self._frames_since_kf = 0
-            return True
+            return None
+
+        debug = getattr(self, "debug_gates", False)
+        if (cfg.pipelined_frontend and cfg.pipeline_depth >= 2
+                and self.initialized and not debug):
+            return self._dispatch_chained(img, time)
 
         self.prof.start("0.FE_pre")
         T_pred = self.motion.predict(time)
@@ -207,17 +358,19 @@ class FrontEnd:
         # --- one device step ------------------------------------------- #
         self.prof.start("0.FE_dispatch")
         do_pose = bool(self.initialized)
-        debug = getattr(self, "debug_gates", False)
+        # `kltTrackingFromKF` (`visual_front_end.cpp:278-442`): replaces
+        # frame-to-frame tracking when enabled and a KF pyramid exists
+        # (host-packed path only — the device chain tracks frame to frame)
         from_kf = bool(cfg.track_keyframetoframe and do_pose
                        and self._kf_pyr is not None)
-        f32 = np.float32
+        k = self._stage.next()
+        state = self._stage.upload(k, "state", pack_track_state(
+            f.px, lm_pos, kf_px, f.valid, is3d, pair_valid,
+            np.asarray(T_pred, np.float32), np.asarray(T_kf, np.float32),
+            out=self._state_buf))
         cur_pyr, out = fused_track_step(
-            self.upload(img), self.cur_pyr,
-            self._dev(f.px.astype(f32)), self._dev(f.valid),
-            self._dev(lm_pos.astype(f32)), self._dev(kf_px.astype(f32)),
-            self._dev(is3d), self._dev(pair_valid),
-            self._dev(np.asarray(T_pred, f32)),
-            self._dev(np.asarray(T_kf, f32)), self._gen, self._calib,
+            self._upload_image(k, img), self.cur_pyr,
+            **unpack_track_state(state), gen=self._gen, calib=self._calib,
             clahe_val=float(cfg.clahe_val),
             max_fbklt_dist=float(cfg.max_fbklt_dist),
             klt_err=float(cfg.klt_err),
@@ -231,28 +384,210 @@ class FrontEnd:
             debug=debug, split_sub=cfg.klt_split_sub,
             kf_pyr=self._kf_pyr if from_kf else None,
             track_from_kf=from_kf)
+        if debug:
+            self.last_debug = {n: v.cpu().numpy() for n, v in out.items()}
         self.prev_pyr = self.cur_pyr
         self.cur_pyr = cur_pyr
+        self._stage.download(k, "out", pack_track_out(out))
+        self._stage.record(k)
+        self._dispatch_seq += 1
+        pend = dict(slot=k, time=time, T_pred=T_pred, do_pose=do_pose,
+                    is3d=is3d, pyr=None, seq=self._dispatch_seq)
+        self._pendings.append(pend)
         self.prof.stop("0.FE_dispatch")
+        return pend
 
-        # --- single readback ------------------------------------------- #
-        self.prof.start("0.FE_readback")
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        self.prof.stop("0.FE_readback")
-        if debug:
-            self.last_debug = res
-        tracked = res["tracked"]
-        und = res["und"]
-        status = res["status"]
-        pose_ok = bool(res["pose_ok"])
-        n_inl = int(res["n_inl"])
-        T_new = res["T_new"].astype(np.float32)
+    # ------------------------------------------------------------------ #
+    # device-chained dispatch (pipeline_depth >= 2)
+    # ------------------------------------------------------------------ #
 
+    def _gather_lm_static(self) -> np.ndarray:
+        """Pack the per-slot map view for the chained step into
+        ``_lm_buf[:N + 1]`` (a host gather, uploaded with every dispatch so
+        BA updates / 2D→3D promotions / culls reach the device recurrence
+        within one frame); returns the slots' 3D flags."""
+        f = self.frame
+        m = self.map
+        ids = np.maximum(f.lmids, 0)
+        # f.valid is included so host-side slot invalidation (P3P-rescue
+        # outliers, starvation culls) reaches the device recurrence at the
+        # next dispatch; the chain's own status recurrence never
+        # resurrects a slot it killed
+        live = f.valid & (f.lmids >= 0) & m.lm_valid[ids]
+        is3d = live & m.lm_is3d[ids]
+        lm_pos = np.where(is3d[:, None], m.lm_pos[ids], 0.0)
+        kf_px = np.zeros_like(f.px_und)
+        pair_valid = np.zeros(len(f.px), bool)
+        kfid = f.kf_id
+        T_kf = f.T_wc.astype(np.float64)
+        if kfid >= 0 and m.kf_valid[kfid]:
+            T_kf = m.kf_poses[kfid].astype(np.float64)
+            lookup = np.full(m.L, -1, np.int32)
+            kf_lm = m.obs_lmid[kfid]
+            sel = kf_lm >= 0
+            lookup[kf_lm[sel]] = np.nonzero(sel)[0]
+            slot_in_kf = lookup[ids]
+            pair_valid = live & (slot_in_kf >= 0)
+            kf_px[pair_valid] = m.obs_px[kfid, slot_in_kf[pair_valid]]
+        pack_lm_static(lm_pos, kf_px, live, is3d, pair_valid,
+                       T_kf.astype(np.float32),
+                       out=self._lm_buf[:len(f.px) + 1])
+        return is3d
+
+    def _dispatch_chained(self, img, time: float):
+        """One chained dispatch: the recurrent tracking state stays on the
+        device (``fused_track_step_chained``); the host ships only the
+        image, the refreshed per-slot map view (with the interval ratio and
+        any pending pose correction in its extra row), and occasional
+        new-slot patches — and reads results ``pipeline_depth`` frames
+        late."""
+        cfg = self.cfg
+        f = self.frame
+        N = cfg.max_kps
+        self.prof.start("0.FE_dispatch")
+        is3d = self._gather_lm_static()
+        # dt ratio vs the previous dispatch interval (frame drops /
+        # uneven arrival): scales the device prior
+        dt = time - self._chain_last_time if self._chain_last_time else 0.0
+        ratio = 1.0
+        if self._chain_dt > 0 and dt > 0:
+            ratio = float(np.clip(dt / self._chain_dt, 0.2, 6.0))
+        if dt > 0:
+            self._chain_dt = dt
+        self._chain_last_time = time
+        extra = self._lm_buf[N + 1]
+        extra[:7] = (self._chain_delta if self._chain_delta is not None
+                     else lie_np.pose_identity())
+        extra[7] = ratio
+        k = self._stage.next()
+        lm_up = self._stage.upload(k, "lm", self._lm_buf)
+
+        if self._chain_S is None:
+            # seed from the resolved host state; T_prev reconstructed from
+            # the motion model's last relative step
+            T_cur = f.T_wc.astype(np.float64)
+            T_prev = lie_np.pose_compose(
+                T_cur, lie_np.pose_inverse(self.motion.rel))
+            self._chain_S = self._stage.upload(k, "chain", pack_chain_state(
+                f.px, f.px_und, f.valid.astype(np.float32),
+                T_cur.astype(np.float32), T_prev.astype(np.float32),
+                out=self._chain_buf))
+            self._chain_pyr = self.cur_pyr
+        else:
+            if self._chain_delta is not None:
+                self._chain_S = patch_chain_pose_delta(
+                    self._chain_S, lm_up[N + 1, :7])
+            if self._chain_patch is not None:
+                # advanced to the chain's head frame by `detect_and_describe`
+                # (see advance_chain_patch)
+                p = self._chain_patch
+                self._chain_S = patch_chain_rows(
+                    self._chain_S, p[:, 0], p[:, 1:3], p[:, 3:5], p[:, 5])
+        self._chain_patch = None
+        self._chain_delta = None
+
+        cur_pyr, S_out, packed = fused_track_step_chained(
+            self._upload_image(k, img), self._chain_pyr, self._chain_S,
+            lm_up[:N + 1], lm_up[N + 1, 7:8], self._gen, self._calib,
+            clahe_val=float(cfg.clahe_val),
+            max_fbklt_dist=float(cfg.max_fbklt_dist),
+            klt_err=float(cfg.klt_err),
+            ransac_err_px=float(cfg.ransac_err),
+            robust_th=float(cfg.robust_mono_th),
+            levels=cfg.klt_levels, win=cfg.klt_win_size,
+            iters=cfg.max_iter, use_clahe=cfg.use_clahe,
+            do_epipolar=cfg.do_epipolar, do_pose=True,
+            ransac_iters=cfg.ransac_iter, pnp_iters=cfg.pnp_iters,
+            fisheye=self._fisheye, use_prior=cfg.klt_use_prior,
+            split_sub=cfg.klt_split_sub)
+        self._chain_S = S_out
+        self._chain_pyr = cur_pyr
+        self._stage.download(k, "out", packed)
+        self._stage.record(k)
+        self._dispatch_seq += 1
+        pend = dict(slot=k, time=time, T_pred=None, do_pose=True,
+                    is3d=is3d, pyr=cur_pyr, seq=self._dispatch_seq)
+        self._pendings.append(pend)
+        self.prof.stop("0.FE_dispatch")
+        return pend
+
+    def measured(self) -> np.ndarray:
+        """Valid slots that the resolved frame measured: a slot born after
+        that frame was dispatched (a keyframe's fresh detection, patched
+        into the device chain while the frame was in flight) still holds
+        the position of the frame it was detected in, so a keyframe made
+        from the resolved frame must not observe it."""
+        return self.frame.valid & (self._slot_birth <= self._resolved_seq)
+
+    def chain_apply_correction(self, T_old: np.ndarray, T_new: np.ndarray):
+        """Propagate a map-side pose correction (BA / pose-graph /
+        P3P-rescue snapped the resolved frame from T_old to T_new) into the
+        pipelined recurrence:
+
+        - the world-frame delta is left-composed onto the device chain's
+          pose rows at the next dispatch (so future dispatches predict from
+          corrected state). It is kept on the host until then, so the
+          asynchronous worker, which calls this under the map lock, never
+          touches the chain tensor from its own stream;
+        - every in-flight pending is tagged with the same delta, so when
+          its already-computed result is resolved, its pose is re-expressed
+          in the corrected world frame instead of the stale one."""
+        if float(np.abs(T_new.astype(np.float64)
+                        - T_old.astype(np.float64)).max()) < 1e-9:
+            return   # no-op correction (e.g. BA left the pose unchanged)
+        delta = lie_np.pose_compose(
+            T_new.astype(np.float64),
+            lie_np.pose_inverse(T_old.astype(np.float64)))
+        for p in self._pendings:
+            p["delta"] = (delta if p.get("delta") is None
+                          else lie_np.pose_compose(delta, p["delta"]))
+        if self._chain_S is None:
+            return
+        self._chain_delta = (delta if self._chain_delta is None
+                             else lie_np.pose_compose(delta,
+                                                      self._chain_delta))
+
+    def resolve_pending(self) -> bool:
+        """Read back and apply the OLDEST in-flight frame's result:
+        slot/pose update, motion model, P3P fallback, keyframe decision.
+        Returns the keyframe request for THAT frame."""
+        cfg = self.cfg
+        f = self.frame
+        p = self._pendings.popleft()
+        self._resolved_seq = p["seq"]
+        time = p["time"]
+        do_pose = p["do_pose"]
+        is3d = p["is3d"]
         f.time = time
+        if p["pyr"] is not None:      # chained: expose this frame's
+            self.prev_pyr = self.cur_pyr   # pyramid to the KF path
+            self.cur_pyr = p["pyr"]
+        T_pred = p["T_pred"]
+        if T_pred is None:            # chained: the prior was computed on
+            T_pred = self.motion.predict(time)   # the device; reconstruct
+            if T_pred is None:
+                T_pred = f.T_wc.astype(np.float64)
+        # one packed readback, in flight since the dispatch; waits on this
+        # frame's event only
+        self.prof.start("0.FE_readback")
+        res = unpack_track_out(self._stage.read(p["slot"], "out"))
+        self.prof.stop("0.FE_readback")
+        tracked, und, status = res["tracked"], res["und"], res["status"]
+        pose_ok, n_inl, T_new = res["pose_ok"], res["n_inl"], res["T_new"]
+        if p.get("delta") is not None:
+            # a map correction (BA/pose-graph/rescue) landed while this
+            # frame was in flight: re-express its pose in the corrected
+            # world frame (see chain_apply_correction)
+            T_new = lie_np.pose_compose(
+                p["delta"], T_new.astype(np.float64)).astype(np.float32)
         n_before = int(f.valid.sum())
-        f.px = np.where(status[:, None], tracked, f.px)
-        f.px_und = np.where(status[:, None], und, f.px_und)
-        f.valid &= status
+        # slots born after this frame was dispatched carry no signal in
+        # its output — leave them untouched (they join at a later seq)
+        known = self._slot_birth <= p["seq"]
+        upd = status & known
+        f.px = np.where(upd[:, None], tracked, f.px)
+        f.px_und = np.where(upd[:, None], und, f.px_und)
+        f.valid &= status | ~known
 
         self.last_pose_ok = pose_ok if do_pose else None
         self.last_n_inl = n_inl if do_pose else 0
@@ -262,16 +597,29 @@ class FrontEnd:
         # global P3P-RANSAC instead of trusting the local PnP
         klt_collapsed = (n_before > 0
                          and f.n_valid < 0.33 * n_before)
+        chained = p["pyr"] is not None
         if do_pose:
             if klt_collapsed and cfg.do_p3p:
-                if not self._p3p_fallback(T_pred):
+                if self._p3p_fallback(T_pred):
+                    if chained:
+                        # rescue succeeded: snap the device recurrence (and
+                        # in-flight results) onto the rescued pose — else
+                        # the next resolve would overwrite the rescue with
+                        # the chain's diverged pose
+                        self.chain_apply_correction(
+                            np.array(T_new, np.float64), f.T_wc)
+                else:
                     f.T_wc = (T_new if pose_ok
                               else T_pred.astype(np.float32))
             elif pose_ok:
                 f.T_wc = T_new
             else:
                 # PnP failed: P3P re-localization attempt
-                if not (cfg.do_p3p and self._p3p_fallback(T_pred)):
+                if cfg.do_p3p and self._p3p_fallback(T_pred):
+                    if chained:
+                        self.chain_apply_correction(
+                            np.array(T_new, np.float64), f.T_wc)
+                else:
                     f.T_wc = T_pred.astype(np.float32)
         else:
             f.T_wc = T_pred.astype(np.float32)
@@ -420,8 +768,14 @@ class FrontEnd:
     def detect_and_describe(self) -> Tuple[np.ndarray, np.ndarray]:
         """Fill empty grid cells with new detections and BRIEF-describe all
         current keypoints (`MapManager::extractKeypoints`,
-        `map_manager.cpp:286-341`). Returns (new_rows, descriptors (N, 8)
-        int32 words)."""
+        `map_manager.cpp:286-341`): one upload, one device step, and both
+        readbacks (descriptors, detections) started together behind one
+        event. Returns (new_rows, descriptors (N, 8) int32 words).
+
+        The JAX package can also defer the readback and the keyframe's
+        registration to the next frame (its asynchronous chained mode);
+        the port registers every keyframe at once (see
+        ``models/pipeline.py``)."""
         cfg = self.cfg
         f = self.frame
         self.prof.start("1.KF_DetectDescribe")
@@ -434,22 +788,28 @@ class FrontEnd:
             detector, thresh = "single", self._quality
         else:
             detector, thresh = "fast", self._fast_th
-        n_valid = f.n_valid
+        k = self._stage_kf.next()
+        slots = self._stage_kf.upload(k, "slots", np.concatenate(
+            [f.px, f.valid[:, None]], axis=1).astype(np.float32))
         desc_all, det = fused_detect_describe(
-            self.cur_pyr[0], self._dev(f.px.astype(np.float32)),
-            self._dev(f.valid), float(thresh), self._calib,
-            detector=detector, cell_size=cfg.max_dist, max_out=cfg.max_kps,
+            self.cur_pyr[0], slots[:, 0:2].contiguous(), slots[:, 2] > 0.5,
+            float(thresh), self._calib, detector=detector,
+            cell_size=cfg.max_dist, max_out=cfg.max_kps,
             fisheye=self._fisheye)
-        desc_all = desc_all.cpu().numpy()
-        kps = det["kps"].cpu().numpy()
-        und_new = det["und"].cpu().numpy()
-        ok = det["ok"].cpu().numpy()
+        self._stage_kf.download(k, "desc", desc_all)
+        self._stage_kf.download(k, "det", torch.cat(
+            [det["kps"], det["und"], det["ok"][:, None].to(torch.float32)],
+            dim=1))
+        self._stage_kf.record(k)
+        desc_all = self._stage_kf.read(k, "desc")
+        det = self._stage_kf.read(k, "det")
+        kps, und_new, ok = det[:, 0:2], det[:, 2:4], det[:, 4] > 0.5
         N = len(f.px)
 
         # adaptive threshold update (`feature_extractor.cpp:418-423,546-552`)
         n_det = int(ok.sum())
         cap = cfg.grid_cells[0] * cfg.grid_cells[1]
-        n_free = max(cap - n_valid, 1)
+        n_free = max(cap - f.n_valid, 1)
         if cfg.use_singlescale_detector or cfg.use_shi_tomasi:
             if n_det < 0.33 * n_free:
                 self._quality /= 2.0
@@ -479,8 +839,50 @@ class FrontEnd:
         # this frame becomes the reference keyframe: its pyramid is the
         # from-KF tracking source until the next keyframe
         self._kf_pyr = self.cur_pyr
+        if len(new_rows):
+            # chain bookkeeping: these slots exist only from the NEXT
+            # dispatch on (device recurrence patched then; older in-flight
+            # resolves must not touch them)
+            self._slot_birth[new_rows] = self._dispatch_seq + 1
+            if self._chain_S is not None:
+                self._chain_patch = self._build_chain_patch(new_rows)
         self.prof.stop("1.KF_DetectDescribe")
         return new_rows, desc
+
+    def _build_chain_patch(self, new_rows: np.ndarray):
+        """Express the fresh detections at the device chain's HEAD frame:
+        KLT-advance them across every in-flight frame's pyramid (one device
+        hop each, no readback), so that ``patch_chain_rows`` scatters
+        positions consistent with the pyramid the next chained step will
+        track from. Returns one (N, 6) [row, px, und, status] tensor,
+        padded with row index 1 << 20 (outside the slot rows)."""
+        cfg = self.cfg
+        f = self.frame
+        N = cfg.max_kps
+        n = len(new_rows)
+        patch = np.zeros((N, 6), np.float32)
+        patch[:, 0] = 1 << 20
+        patch[:n, 0] = new_rows
+        patch[:n, 1:3] = f.px[new_rows]
+        patch[:n, 3:5] = f.px_und[new_rows]
+        patch[:n, 5] = 1.0
+        k = self._stage_kf.next()
+        p = self._stage_kf.upload(k, "patch", patch)
+        self._stage_kf.record(k)
+        # only the n new rows are tracked (rows are independent)
+        px_d, und_d, st_d = p[:n, 1:3], p[:n, 3:5], p[:n, 5]
+        pyr_prev = self.cur_pyr
+        for q in self._pendings:
+            if q.get("pyr") is None:
+                continue
+            px_d, und_d, st_d = advance_chain_patch(
+                pyr_prev, q["pyr"], px_d, st_d, self._calib,
+                win=cfg.klt_win_size, iters=cfg.max_iter,
+                fisheye=self._fisheye)
+            pyr_prev = q["pyr"]
+        out = p.clone()
+        out[:n, 1:3], out[:n, 3:5], out[:n, 5] = px_d, und_d, st_d
+        return out
 
     # ------------------------------------------------------------------ #
 
@@ -491,5 +893,14 @@ class FrontEnd:
         self.motion.reset()
         self.prev_pyr = None
         self.cur_pyr = None
+        self._pendings.clear()
+        self._stage.clear()
+        self._chain_S = None
+        self._chain_pyr = None
+        self._chain_patch = None
+        self._chain_delta = None
+        self._chain_last_time = None
+        self._chain_dt = 0.0
+        self._slot_birth[:] = 0
         self._kf_pyr = None
         self.initialized = self.cfg.stereo

@@ -11,9 +11,12 @@ trajectory logging and result writing with the optional full BA and the
 full-trajectory pose graph (`writeResults`, `ov2slam.cpp:576-703`).
 
 Supported: mono or stereo, ``slam_mode`` on, inverse-depth or xyz BA,
-loop closer and relocalizer on or off. ``pipelined_frontend`` raises
-``NotImplementedError``. All device work runs on ``device`` (``None`` =
-the GPU; see :mod:`ov2slam_torch.device`).
+loop closer and relocalizer on or off, and the pipelined front end
+(``pipelined_frontend``: each frame's result resolved ``pipeline_depth``
+frames late, device-chained at depth >= 2). The asynchronous manager, with
+keyframe processing on a worker thread, is
+:class:`ov2slam_torch.models.pipeline.AsyncSlamManager`. All device work
+runs on ``device`` (``None`` = the GPU; see :mod:`ov2slam_torch.device`).
 """
 
 from __future__ import annotations
@@ -46,10 +49,6 @@ class SlamManager:
     def __init__(self, cfg: SlamConfig,
                  use_loop_closer: Optional[bool] = None, device=None,
                  seed: int = 42):
-        if cfg.pipelined_frontend:
-            raise NotImplementedError(
-                "ov2slam_torch.SlamManager does not support: "
-                "pipelined_frontend")
         self.cfg = cfg
         self.device = resolve_device(device)
         # RANSAC sample streams held by this manager (the JAX package
@@ -92,6 +91,7 @@ class SlamManager:
         self.prof = Profiler.instance()
         self.frame_id = -1
         self.n_resets = 0
+        self._prev_rights = []    # right images of the in-flight frames
 
     # ------------------------------------------------------------------ #
 
@@ -142,13 +142,30 @@ class SlamManager:
                       img_right: Optional[np.ndarray] = None,
                       time: float = 0.0) -> np.ndarray:
         """Feed one frame (mono, or a stereo pair); returns the current
-        T_wc."""
+        T_wc.
+
+        With ``cfg.pipelined_frontend`` a frame's result is resolved
+        ``pipeline_depth`` frames late, its readback overlapped with the
+        next frames' dispatches; the returned pose then belongs to an
+        earlier frame. :meth:`finish` (called by the trajectory and result
+        getters) resolves the frames still in flight."""
         self.frame_id += 1
         fe = self.frontend
         if self._remap_l is not None:
             img_left = self._remap(self._remap_l, img_left)
         if self._remap_r is not None and img_right is not None:
             img_right = self._remap(self._remap_r, img_right)
+
+        if self.cfg.pipelined_frontend and self._pipeline_ready(fe):
+            depth = max(1, self.cfg.pipeline_depth)
+            if fe.n_pending >= depth:
+                self._resolve_oldest()
+            if self._pipeline_ready(fe):   # may have reset / gone lost
+                fe.dispatch_frame(img_left, time)
+                self._prev_rights.append(img_right)
+                return fe.frame.T_wc
+        # mode switch / lost state: resolve before the synchronous path
+        self.finish()
 
         # post-reset relocalization (beyond-reference): while lost with a
         # populated map, first try to re-localize against the place index;
@@ -167,6 +184,26 @@ class SlamManager:
                 return fe.frame.T_wc
         is_kf = fe.track_frame(img_left, time)
         return self._post_track(is_kf, img_right)
+
+    def _pipeline_ready(self, fe) -> bool:
+        """Steady tracking — the only regime the dispatch/resolve split
+        handles; bootstrap, mono init and lost states go through the
+        synchronous path."""
+        return (fe.initialized and self.map.n_keyframes >= 1
+                and not (fe.frame.kf_id < 0 and fe.frame.n_valid == 0)
+                and not getattr(fe, "debug_gates", False))
+
+    def _resolve_oldest(self):
+        """Resolve the oldest in-flight frame and run everything after
+        tracking for it, with its own right image."""
+        is_kf = self.frontend.resolve_pending()
+        right = self._prev_rights.pop(0) if self._prev_rights else None
+        self._post_track(is_kf, right)
+
+    def finish(self):
+        """Resolve all in-flight frames (the pipelined mode's barrier)."""
+        while self.frontend.has_pending:
+            self._resolve_oldest()
 
     def _post_track(self, is_kf: bool, img_right) -> np.ndarray:
         """Everything after per-frame tracking: init/starvation handling,
@@ -207,6 +244,8 @@ class SlamManager:
                    and fe.frame.n_valid < reset_th
                    and not fe.bootstrap_kf)
 
+        if is_kf and not starved and not self._allow_new_kf():
+            is_kf = False        # async backpressure (see pipeline.py)
         if is_kf and not starved:
             kfid = self._create_keyframe(time, img_right)
             fe.frame.kf_id = kfid
@@ -227,6 +266,12 @@ class SlamManager:
         self.logger.add_pose(time, T, is_kf, self._kf_key(kf_id), T_kf)
         return fe.frame.T_wc
 
+    def _allow_new_kf(self) -> bool:
+        """Keyframe-creation admission hook; the asynchronous manager
+        overrides it with mapper-lag backpressure (`bnewkfavailable_`
+        semantics, `mapper.cpp:153-162`)."""
+        return True
+
     def _kf_key(self, kf_id: int) -> int:
         """Stable trajectory-log key for a keyframe: its insertion seq.
         Slot ids are recycled, so logging the slot would alias an old
@@ -242,6 +287,7 @@ class SlamManager:
         fe = self.frontend
         f = fe.frame
 
+        measured = fe.measured()
         new_rows, desc = fe.detect_and_describe()
         if fe.bootstrap_kf and self.map.n_keyframes >= 1:
             # featureless re-bootstrap veto: after a tracking-loss reset a
@@ -261,24 +307,39 @@ class SlamManager:
             lmids = self.map.new_landmarks(n_alloc)
             f.lmids[new_rows[:n_alloc]] = lmids
 
-        lm_slots = np.where(f.valid, f.lmids, -1).astype(np.int32)
+        # the keyframe observes the slots this frame measured and its new
+        # detections (see FrontEnd.measured)
+        measured[new_rows] = True
+        lm_slots = np.where(f.valid & measured, f.lmids, -1).astype(np.int32)
         kfid = self.map.add_keyframe(
             time, f.T_wc, lm_slots, f.px_und, desc.astype(np.uint32))
         f.kf_id = kfid
 
         if fe.initialized:
-            self.mapper.process_keyframe(kfid, f, fe.cur_pyr, img_right)
-            if self.cfg.do_track_localmap:
-                self.mapper.match_to_local_map(kfid)
-            if self.cfg.slam_mode:
-                self.estimator.local_ba(kfid)
-                self.estimator.map_filtering(kfid)
-            if self.loop_closer is not None:
-                self.loop_closer.process_keyframe(kfid, img=fe.cur_pyr[0])
-            # refresh the front-end pose estimate after BA moved the map
-            f.T_wc = self.map.kf_poses[kfid].copy()
-            fe.motion.prev_T = f.T_wc.astype(np.float64)
+            self._map_keyframe(kfid, img_right)
         return kfid
+
+    def _map_keyframe(self, kfid: int, img_right) -> None:
+        """Mapping, local BA and loop closure of the new keyframe
+        ``kfid``, inline; the asynchronous manager hands it to its worker
+        instead."""
+        fe = self.frontend
+        f = fe.frame
+        self.mapper.process_keyframe(kfid, f, fe.cur_pyr, img_right)
+        if self.cfg.do_track_localmap:
+            self.mapper.match_to_local_map(kfid)
+        if self.cfg.slam_mode:
+            self.estimator.local_ba(kfid)
+            self.estimator.map_filtering(kfid)
+        if self.loop_closer is not None:
+            self.loop_closer.process_keyframe(kfid, img=fe.cur_pyr[0])
+        # refresh the front-end pose estimate after BA moved the map; in
+        # chained mode, propagate the same correction into the in-flight
+        # device recurrence
+        T_old = f.T_wc.copy()
+        f.T_wc = self.map.kf_poses[kfid].copy()
+        fe.motion.prev_T = f.T_wc.astype(np.float64)
+        fe.chain_apply_correction(T_old, f.T_wc)
 
     # ------------------------------------------------------------------ #
 
@@ -371,6 +432,7 @@ class SlamManager:
         restart; post-init the map is kept)."""
         self.n_resets += 1
         self.frontend.reset()
+        self._prev_rights = []
         if full:
             self.map = MapStore(self.cfg)
             self.frontend.map = self.map
@@ -389,6 +451,7 @@ class SlamManager:
         frame, keyframe and KITTI trajectories, the keyframe trajectory
         after the optional full BA, and the loop-corrected full trajectory
         before and after the full pose graph."""
+        self.finish()
         self.logger.write_tum(os.path.join(out_dir, "ov2slam_traj.txt"))
         self.logger.write_tum(
             os.path.join(out_dir, "ov2slam_kfs_traj.txt"),
@@ -440,6 +503,7 @@ class SlamManager:
 
     def estimated_trajectory(self):
         """(times (F,), poses (F, 7)) of all processed frames."""
+        self.finish()
         times = np.array([fp.time for fp in self.logger.frames])
         poses = np.stack([fp.T_wc for fp in self.logger.frames])
         return times, poses

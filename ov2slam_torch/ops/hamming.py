@@ -27,6 +27,7 @@ integers and the one division is IEEE f32, so all paths agree bit for bit.
 from __future__ import annotations
 
 import collections
+import threading
 
 import torch
 
@@ -170,12 +171,15 @@ def match_scores_bits(store_pm1, store_valid, q_pm1, q_valid,
         raise RuntimeError(f"hamming_score launch failed: code {rc}")
     match_scores_bits.launches += 1
     match_scores_bits.shapes[(M, N, Nq)] += 1
+    match_scores_bits.origins[(threading.current_thread().name, stream)] += 1
     return out
 
 
-# launches of the kernel, and how many at each (M, N, Nq)
+# launches of the kernel, how many at each (M, N, Nq), and how many from
+# each (thread name, CUDA stream handle)
 match_scores_bits.launches = 0
 match_scores_bits.shapes = collections.Counter()
+match_scores_bits.origins = collections.Counter()
 
 
 def match_scores(store_desc, store_valid, q_desc, q_valid, match_bits: int):

@@ -70,7 +70,7 @@ def pnp_refine(
             rho = c2
         return torch.sum(rho * w_valid * dok)
 
-    lam = torch.tensor(lam0, dtype=f32, device=dev)
+    lam = torch.full((), lam0, dtype=f32, device=dev)   # no host upload
     c1 = torch.zeros((), dtype=f32, device=dev)
     for _ in range(iters):
         r, J, depth_ok = _pose_residuals(T_cw, pts, px_obs, fx, fy, cx, cy)

@@ -41,7 +41,9 @@ class _ScopeStats:
         self.m2 = 0.0
         self.vmin = math.inf
         self.vmax = -math.inf
-        self._t0 = None
+        # start times per thread: the asynchronous manager's worker and
+        # front end can time the same scope at once
+        self._t0: Dict[int, float] = {}
 
     def add(self, dt_ms: float):
         # Welford update (`profiler.hpp:61-77`)
@@ -58,7 +60,8 @@ class _ScopeStats:
 
 
 class Profiler:
-    """Thread-safe named scope timer. Scope taxonomy mirrors the
+    """Thread-safe named scope timer (a scope's start is kept per
+    thread). Scope taxonomy mirrors the
     reference's instrumentation points ("0.Full-Front_End",
     "2.BA_Optimize", "1.KF_stereoMatching", ...)."""
 
@@ -82,7 +85,7 @@ class Profiler:
             return
         with self._lock:
             st = self._scopes.setdefault(name, _ScopeStats())
-            st._t0 = time.perf_counter()
+            st._t0[threading.get_ident()] = time.perf_counter()
 
     def stop(self, name: str, sync=None):
         if not self.enabled:
@@ -92,10 +95,11 @@ class Profiler:
         t1 = time.perf_counter()
         with self._lock:
             st = self._scopes.get(name)
-            if st is None or st._t0 is None:
+            t0 = None if st is None else st._t0.pop(threading.get_ident(),
+                                                     None)
+            if t0 is None:
                 return
-            st.add((t1 - st._t0) * 1e3)
-            st._t0 = None
+            st.add((t1 - t0) * 1e3)
 
     @contextmanager
     def scope(self, name: str):

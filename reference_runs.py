@@ -4,10 +4,16 @@
 By default runs the JAX package's ``SlamManager`` (``ov2slam_tpu``) on the
 CPU over slices of ``chip_smoke.py`` — same sequence, same config, same
 frame script (``chip_smoke.drive_slice``) — and prints one JSON line per
-slice with the figures ``chip_smoke.slice_outcome`` computes (A, B: ATE,
-endpoint error; C: mono initialization, scale-aligned ATE, the full-BA
-keyframe ATE; D: the relocalization's pose errors, the last frame's
-error), keyframes, closures and resets. ``chip_smoke.py`` gates the port
+slice with the figures ``chip_smoke.slice_outcome`` computes (A, B, E:
+ATE, endpoint error; C: mono initialization, scale-aligned ATE, the
+full-BA keyframe ATE; D: the relocalization's pose errors, the last
+frame's error), keyframes, closures and resets. Slice E is slice B with
+the device-chained front end (``pipelined_frontend``, depth 2) through the
+synchronous ``SlamManager``, which is deterministic; ``chip_smoke.py``
+runs the same sequence and config through the asynchronous manager,
+whose runs depend on thread timing, and prints this figure beside its
+gate. Slice F (paced asynchronous arrival) has no synchronous
+counterpart. ``chip_smoke.py`` gates the port
 against these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
 ``--device`` (``cpu`` by default, or ``cuda``) instead. ``--seeds`` runs
 once per value: the port's ``SlamManager(seed=...)``, which seeds its
@@ -17,8 +23,10 @@ ones. A seed given twice shows whether two runs agree to the last bit.
 
     JAX_PLATFORMS=cpu python reference_runs.py A B
     JAX_PLATFORMS=cpu python reference_runs.py C D
+    JAX_PLATFORMS=cpu python reference_runs.py E
     JAX_PLATFORMS=cpu python reference_runs.py A --seeds 1 2 3
     python reference_runs.py --port A --seeds 1 2 3
+    python reference_runs.py --port E
     python3 reference_runs.py --port --device cuda A --seeds 42 42 1 2 3
 """
 

@@ -94,6 +94,33 @@ def test_slices_c_and_d():
     assert len(chip_smoke.slice_frames("C", seq)) == n
 
 
+def test_slices_e_and_f():
+    """Slice E is slice B's sequence and config with the chained front end
+    (the asynchronous manager runs it, its loop closer on); slice F is the
+    paced-arrival test's stream with the fast profile, whose loop closer
+    is off."""
+    import chip_smoke
+    from ov2slam_torch.io import synthetic
+    from ov2slam_torch.utils import profiles
+
+    confs = chip_smoke.slice_configs()
+    assert confs["E"][0] == confs["B"][0]
+    assert confs["F"][0] == dict(n_frames=110, stereo=True, width=752,
+                                 height=480, n_points=8000, seed=0,
+                                 kind="arc", speed=0.05)
+    cfgs = {}
+    for name in ("B", "E", "F"):
+        cfgs[name] = chip_smoke.slice_config(name, synthetic.stream_sequence(
+            **confs[name][0], realism=None), profiles)
+    for name in ("E", "F"):
+        assert cfgs[name].pipelined_frontend
+        assert cfgs[name].pipeline_depth == 2
+    assert not cfgs["B"].pipelined_frontend
+    assert cfgs["E"].use_loop_closer and not cfgs["E"].use_relocalizer
+    assert cfgs["E"].max_kps == cfgs["B"].max_kps == 512
+    assert not cfgs["F"].use_loop_closer
+
+
 def test_package_imports_without_cuda():
     # a fresh interpreter with CUDA hidden: every module imports, and
     # nothing imports jax along the way
@@ -141,14 +168,24 @@ def test_entry_points_default_to_gpu(monkeypatch):
 
 
 def test_unsupported_configurations_raise():
-    """Only the pipelined front end is outside the port: mono, the
-    relocalizer, xyz BA, full BA and image rectification construct."""
+    """Every configuration of the port's path constructs on the CPU: the
+    pipelined front end at depths 1 and 2 (synchronous and asynchronous
+    managers), mono, the relocalizer, xyz BA, full BA and image
+    rectification; the asynchronous manager, like the synchronous one,
+    raises without a GPU when no device is named."""
     from ov2slam_torch.io.synthetic import generate_sequence
+    from ov2slam_torch.models.pipeline import AsyncSlamManager
     from ov2slam_torch.models.slam import SlamManager
 
     seq = generate_sequence(n_frames=2, width=96, height=64, n_points=50)
-    with pytest.raises(NotImplementedError, match="pipelined_frontend"):
-        SlamManager(seq.make_config(pipelined_frontend=True), device="cpu")
+    for depth in (1, 2):
+        cfg = seq.make_config(pipelined_frontend=True, pipeline_depth=depth)
+        slam = SlamManager(cfg, device="cpu")
+        assert len(slam.frontend._stage._bufs) == depth + 1
+        slam = AsyncSlamManager(cfg, device="cpu")
+        assert slam.worker_stream is None and slam._worker.is_alive()
+        slam.close()
+        assert not slam._worker.is_alive()
     for over in (dict(use_relocalizer=True, use_loop_closer=True),
                  dict(do_full_ba=True), dict(use_inv_depth=False),
                  dict(do_stereo_rect=True)):
@@ -159,6 +196,14 @@ def test_unsupported_configurations_raise():
                              n_points=50)
     slam = SlamManager(mono.make_config(), device="cpu")
     assert slam.cam_r is None and not slam.frontend.initialized
+    import threading
+
+    n_threads = threading.active_count()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            AsyncSlamManager(seq.make_config(pipelined_frontend=True))
+    assert threading.active_count() == n_threads   # no worker was started
 
 
 def test_cuda_kernel_wrapper_refuses_cpu_fallback():

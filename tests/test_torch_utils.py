@@ -19,7 +19,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ["utils/config.py", "utils/lie_np.py", "utils/trajectory.py",
           "utils/evaluation.py", "utils/profiles.py", "mapping/store.py",
-          "io/synthetic.py"]
+          "io/synthetic.py", "io/euroc.py"]
 
 
 def _body(path):
@@ -75,3 +75,36 @@ def test_profiler_records_like_jax():
         p.reset()
         assert p.stats() == {}
     assert stats[0] == stats[1] == {"a": 3, "b": 3}
+
+
+def test_profiler_times_one_scope_on_two_threads():
+    # the asynchronous manager's worker and front end can time the same
+    # scope at once: each thread's start is its own, so both count and
+    # neither interval is taken from the other's start
+    import threading
+    import time
+
+    from ov2slam_torch.utils.profiler import Profiler
+
+    p = Profiler()
+    a_started, b_stopped = threading.Event(), threading.Event()
+
+    def a():
+        p.start("2.KF_StereoMap")
+        a_started.set()
+        b_stopped.wait(5)
+        time.sleep(0.05)
+        p.stop("2.KF_StereoMap")
+
+    t = threading.Thread(target=a)
+    t.start()
+    a_started.wait(5)
+    p.start("2.KF_StereoMap")       # would overwrite a's start if shared
+    p.stop("2.KF_StereoMap")
+    b_stopped.set()
+    t.join(5)
+    assert not t.is_alive()
+    st = p.stats()["2.KF_StereoMap"]
+    assert st["n"] == 2
+    assert st["max_ms"] >= 50.0      # a's interval runs from a's own start
+    assert st["min_ms"] < 50.0
