@@ -34,17 +34,43 @@ Phases (any failure exits non-zero):
      depth 2, 30 warm frames, then paced at 0.75 x the flat-out rate with
      frames dropped when behind). Gates: <= 10% of the paced frames
      dropped, ATE < 0.05 m, 0 worker errors. Its loop closer is off, so it
-     launches no kernel.
+     launches no kernel;
+ 10. entry: ``ov2slam_torch.entry.entry()`` (fb-KLT of 256 keypoints over
+     two 4-level 752x480 pyramids): ms per call, CUDA kernels per call
+     (torch.profiler), and agreement with the same call on the CPU
+     (status equal on >= 99% of keypoints, positions within 1e-2 px where
+     both track);
+ 11. slice G: RGB-D fusion into a TsdfVolume of 640x640x64 voxels (26.2 M,
+     524 MB of state) from the fork's CARLA rig (six 800x600 90-degree
+     RGB-D cameras over 30 rig steps of a synthetic street, ray cast on the
+     card: 180 integrations), then surface points, the mesh and its PLY,
+     and the ESDF. Gates: surface points within 1.5 voxels and mesh
+     vertices within 1 voxel of the analytic street at the 99th
+     percentile (the largest error: those limits or 1.25 x the JAX
+     package's, whichever is larger); the ESDF 0 on occupied voxels and
+     <= 5 m; after the first rig step, the card's volume equal to the same
+     calls on the CPU (1e-5 relative) except on voxels whose pixel differs
+     between the devices, at most 1e-4 of the updated ones. Reports ms per
+     integration and per ESDF sweep against their bounds, the mesh's host
+     seconds and the peak device memory;
+ 12. slice H: ``ov2slam_torch.run_slam.main`` in-process on the card over a
+     KITTI-layout directory (slice A's loop at 1241x376 with 8000
+     points, ``accurate`` profile, loop closer on) and a TartanAir-layout one (640x480, with
+     ``--async``), each with a reference-format YAML. Gates: ATE <=
+     max(0.09 m, 1.25 x the JAX package's through the root run_slam.py),
+     0 resets, the six result files and viewer.html written, the saved
+     map reloaded equal, the scorer launched under the KITTI run.
 For E and F it also prints the synchronizing CUDA calls that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports on the front end's
 thread during 10 chained dispatches, and the worker stream's handle beside
 the (thread, stream) of every scorer launch.
 Then the scorer at each slice's main-path shapes (for A and B the
-populated prefix of the index, every M it took; for C, D and E every
+populated prefix of the index, every M it took; for C, D, E and H every
 (M, N, Nq) the slice launched, on the loop-closure and the relocalizer
 path) against its plain versions and timed at the last, one JSON line of
-kernel records, the card's name and power limit, and the final
-``{"ok": true, "device": ...}`` line.
+the plain-torch work with a bound (TSDF integration, the ESDF sweep,
+entry()'s fb-KLT), one JSON line of kernel records, the card's name and
+power limit, and the final ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
 fixed seeds.
@@ -90,6 +116,36 @@ SLICE_F_MAX_ATE = 0.05
 SLICE_F_MAX_DROP_SHARE = 0.10
 SLICE_F_WARM = 30
 SYNC_COUNT_DISPATCHES = 10
+# slice G: six RGB-D cameras at CARLA's default 800x600 and 90 degree FOV
+# (scripts/talker.py syncs six), yawed 60 degrees apart on a rig moving
+# 1 m per step for 30 steps (180 integrations), fused with
+# launch/carla.launch's TSDF parameters into a 64 x 64 x 6.4 m grid
+SLICE_G = dict(seed=7, width=800, height=600, fov_deg=90.0, n_cams=6,
+               steps=30, step_m=1.0, cam_height=1.7, voxel=0.1, trunc=0.3,
+               min_ray=0.5, max_ray=10.0, dims=(640, 640, 64),
+               origin=(-32.0, -32.0, -0.5), esdf_max=5.0)
+# slice H: the stereo loop of slices A and B at KITTI's 1241x376 through
+# `run_slam --kitti` (accurate profile, loop closer on), and slice F's arc
+# at 640x480 through `run_slam --tartanair --async`. KITTI's aspect halves
+# the vertical field of view, so the loop's scene has twice A's and B's
+# 4000 points to keep as many in view (with 4000, both packages lose
+# track: ATE 1.39 and 1.40 m)
+SLICE_H = dict(
+    kitti=dict(n_frames=160, stereo=True, width=1241, height=376,
+               n_points=8000, seed=6, speed=0.06, kind="loop"),
+    tartanair=dict(n_frames=110, stereo=True, width=640, height=480,
+                   n_points=8000, seed=0, speed=0.05, kind="arc"))
+# slice H gate: max(0.09 m, 1.25 x the JAX package's ATE on the same
+# directory through the root run_slam.py, reference_runs.py H, CPU)
+JAX_SLICE_H = dict(kitti=0.0098, tartanair=0.0105)
+# the JAX package's figures on slice G (reference_runs.py G, CPU)
+JAX_SLICE_G = dict(surface_points=65426,
+                   surface_max_err_voxels=2.9168471546555486,
+                   surface_p99_err_voxels=1.326614595012643,
+                   mesh_faces=262338,
+                   mesh_max_err_voxels=3.1514662952805628,
+                   mesh_p99_err_voxels=0.48445747531946637,
+                   occupied_voxels=266339)
 RESULT_FILES = ("ov2slam_traj.txt", "ov2slam_kfs_traj.txt",
                 "ov2slam_traj_kitti.txt", "ov2slam_fullba_kfs_traj.txt",
                 "ov2slam_full_traj_wlc.txt", "ov2slam_full_traj_wlc_opt.txt")
@@ -174,6 +230,93 @@ def slice_frames(name: str, seq):
             + [(blank, blank, t25 + 0.01 * j, None) for j in range(3)]
             + [frame(20, t25 + 0.05)]
             + [frame(i, t25 + 0.05 * (i - 19)) for i in range(21, 30)])
+
+
+def _write_gray_png(img, path) -> None:
+    import numpy as np
+    from PIL import Image
+
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path)
+
+
+def write_kitti_dir(seq, root: str, sequence: str = "00") -> None:
+    """A rendered sequence in the KITTI odometry layout under ``root``:
+    ``sequences/<seq>/image_{0,1}/NNNNNN.png`` (8-bit), ``times.txt`` and
+    ``poses/<seq>.txt`` (3x4 camera-to-world rows)."""
+    import numpy as np
+
+    from ov2slam_torch.utils import lie_np
+
+    d = os.path.join(root, "sequences", sequence)
+    for cam, images in (("image_0", seq.images_left),
+                        ("image_1", seq.images_right or [])):
+        os.makedirs(os.path.join(d, cam), exist_ok=True)
+        for i, img in enumerate(images):
+            _write_gray_png(img, os.path.join(d, cam, f"{i:06d}.png"))
+    with open(os.path.join(d, "times.txt"), "w") as f:
+        f.write("".join(f"{float(t):.6e}\n" for t in seq.times))
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    rows = [" ".join(f"{v:.12e}" for v in
+                     lie_np.pose_to_matrix(T)[:3].reshape(-1))
+            for T in np.asarray(seq.gt_poses, np.float64)]
+    with open(os.path.join(root, "poses", sequence + ".txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_tartanair_dir(seq, root: str) -> None:
+    """A rendered sequence in the TartanAir layout under ``root``:
+    ``image_left/NNNNNN_left.png``, ``image_right/NNNNNN_right.png`` and
+    ``pose_left.txt`` (x y z qx qy qz qw rows). TartanAir has no
+    timestamps: its reader stamps frames at 10 Hz."""
+    import numpy as np
+
+    for side, images in (("left", seq.images_left),
+                         ("right", seq.images_right or [])):
+        os.makedirs(os.path.join(root, f"image_{side}"), exist_ok=True)
+        for i, img in enumerate(images):
+            _write_gray_png(img, os.path.join(root, f"image_{side}",
+                                              f"{i:06d}_{side}.png"))
+    P = np.asarray(seq.gt_poses, np.float64)
+    rows = [" ".join(f"{v:.12e}" for v in (*T[4:7], *T[1:4], T[0]))
+            for T in P]
+    with open(os.path.join(root, "pose_left.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def write_reference_yaml(cfg, path: str) -> None:
+    """``cfg`` (a ``SlamConfig`` of either package) as a reference-format
+    parameter YAML (OpenCV FileStorage): every parameter ``load_config``
+    reads, the cameras' intrinsics and ``body_T_cam{0,1}``."""
+    import numpy as np
+
+    from ov2slam_torch.utils.config import _PARAM_MAP
+
+    def scalar(v):
+        return int(v) if isinstance(v, (bool, np.bool_)) else v
+
+    def matrix(key, M):
+        data = ", ".join(repr(float(v)) for v in np.asarray(M).reshape(-1))
+        return (f"{key}: !!opencv-matrix\n   rows: 4\n   cols: 4\n"
+                f"   dt: d\n   data: [ {data} ]")
+
+    lines = ["%YAML:1.0", "---"]
+    lines += [f"{k}: {scalar(getattr(cfg, f))}"
+              for k, (f, _) in _PARAM_MAP.items()]
+    for s, side, cam in (("left", "l", cfg.cam_left),
+                         ("right", "r", cfg.cam_right)):
+        if cam is None:
+            continue
+        lines += [f"Camera.model_{s}: {cam.model}",
+                  f"Camera.{s}_nwidth: {cam.width}",
+                  f"Camera.{s}_nheight: {cam.height}"]
+        lines += [f"Camera.{k}{side}: {v!r}" for k, v in zip(
+            ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2"),
+            (cam.fx, cam.fy, cam.cx, cam.cy, *map(float, cam.dist)))]
+        if cam.T_body_cam is not None:
+            lines.append(matrix("body_T_cam0" if side == "l"
+                                else "body_T_cam1", cam.T_body_cam))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
 
 
 def drive_slice(name: str, slam, seq):
@@ -872,6 +1015,499 @@ def gate_slice_d(d) -> None:
           f"(JAX package {JAX_SLICE_D['fullba_ate_m']} m)", flush=True)
 
 
+# ---------------------------------------------------------------------- #
+# slice G: RGB-D fusion into the TSDF volume (the fork's CARLA rig)
+# ---------------------------------------------------------------------- #
+
+def street_scene(seed: int = SLICE_G["seed"]):
+    """A synthetic street: the ground plane z = 0 and 20-40 axis-aligned
+    boxes (buildings, parked vehicles) beside a 7 m wide road along x,
+    each with a colour. Returns numpy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(20, 41))
+    half = rng.uniform([0.5, 0.5], [3.0, 3.0], (n, 2))
+    side = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    cx = rng.uniform(-30.0, 30.0, n)
+    cy = side * (3.5 + half[:, 1] + rng.uniform(0.0, 12.0, n))
+    h = rng.uniform(1.0, 5.5, n)
+    lo = np.stack([cx - half[:, 0], cy - half[:, 1], np.zeros(n)], -1)
+    hi = np.stack([cx + half[:, 0], cy + half[:, 1], h], -1)
+    return dict(box_lo=lo, box_hi=hi,
+                box_rgb=rng.uniform(40.0, 255.0, (n, 3)),
+                ground_rgb=np.array([90.0, 90.0, 90.0]))
+
+
+def rig_intrinsics():
+    """CARLA's default camera: (W, H) pixels, 90 degree horizontal FOV."""
+    import numpy as np
+
+    w, h = SLICE_G["width"], SLICE_G["height"]
+    f = w / (2.0 * np.tan(np.radians(SLICE_G["fov_deg"]) / 2.0))
+    return np.array([[f, 0.0, w / 2.0], [0.0, f, h / 2.0], [0.0, 0.0, 1.0]])
+
+
+def rig_poses():
+    """T_wc [q, t] of every camera at every rig step, in integration
+    order: the rig moves 1 m along x per step at 1.7 m above the ground;
+    its six cameras look horizontally, yawed 0, 60, ..., 300 degrees
+    (x right, y down, z forward in each camera)."""
+    import numpy as np
+
+    from ov2slam_torch.utils import lie_np
+
+    out = []
+    for k in range(SLICE_G["steps"]):
+        pos = np.array([-15.0 + SLICE_G["step_m"] * k, 0.0,
+                        SLICE_G["cam_height"]])
+        for c in range(SLICE_G["n_cams"]):
+            yaw = 2.0 * np.pi * c / SLICE_G["n_cams"]
+            M = np.eye(4)
+            M[:3, 0] = [np.sin(yaw), -np.cos(yaw), 0.0]
+            M[:3, 1] = [0.0, 0.0, -1.0]
+            M[:3, 2] = [np.cos(yaw), np.sin(yaw), 0.0]
+            M[:3, 3] = pos
+            out.append(lie_np.pose_from_matrix(M))
+    return out
+
+
+def render_rgbd(scene, T_wc, K, device):
+    """Depth (H, W) and RGB (H, W, 3) f32 tensors on ``device`` of the
+    street seen from ``T_wc``, by analytic ray casting in f64 (depth is
+    the z distance; inf where a ray hits nothing)."""
+    import torch
+
+    from ov2slam_torch.utils import lie_np
+
+    W, H = SLICE_G["width"], SLICE_G["height"]
+    f64 = dict(dtype=torch.float64, device=device)
+    M = torch.as_tensor(lie_np.pose_to_matrix(T_wc), **f64)
+    vs, us = torch.meshgrid(torch.arange(H, **f64), torch.arange(W, **f64),
+                            indexing="ij")
+    d_cam = torch.stack([(us - K[0, 2]) / K[0, 0], (vs - K[1, 2]) / K[1, 1],
+                         torch.ones_like(us)], -1).reshape(-1, 3)
+    d = d_cam @ M[:3, :3].T            # per unit of camera z
+    o = M[:3, 3]
+    inf = torch.full_like(d[:, 0], float("inf"))
+    t = torch.where(d[:, 2] < 0, -o[2] / d[:, 2], inf)
+    rgb = torch.as_tensor(scene["ground_rgb"], **f64).expand(len(t), 3)
+    rgb = torch.where(torch.isfinite(t)[:, None], rgb, 0.0)
+    d_safe = torch.where(d == 0, 1e-30, d)
+    for lo, hi, c in zip(scene["box_lo"], scene["box_hi"],
+                         scene["box_rgb"]):
+        t1 = (torch.as_tensor(lo, **f64) - o) / d_safe
+        t2 = (torch.as_tensor(hi, **f64) - o) / d_safe
+        near = torch.minimum(t1, t2).amax(-1)
+        far = torch.maximum(t1, t2).amin(-1)
+        hit = (near <= far) & (near > 0) & (near < t)
+        t = torch.where(hit, near, t)
+        rgb = torch.where(hit[:, None], torch.as_tensor(c, **f64), rgb)
+    return (t.reshape(H, W).to(torch.float32),
+            rgb.reshape(H, W, 3).to(torch.float32))
+
+
+def surface_distance(points, scene, chunk: int = 1 << 18):
+    """Distance (m) of each point (N, 3) to the nearest analytic surface:
+    the ground plane or a box's boundary."""
+    import numpy as np
+
+    p = np.asarray(points, np.float64)
+    out = np.empty(len(p))
+    c = (scene["box_lo"] + scene["box_hi"]) / 2.0
+    half = (scene["box_hi"] - scene["box_lo"]) / 2.0
+    for s in range(0, len(p), chunk):
+        q = np.abs(p[s:s + chunk, None, :] - c[None]) - half[None]
+        sd = (np.linalg.norm(np.maximum(q, 0.0), axis=-1)
+              + np.minimum(q.max(-1), 0.0))
+        out[s:s + chunk] = np.minimum(np.abs(p[s:s + chunk, 2]),
+                                      np.abs(sd).min(-1))
+    return out
+
+
+def slice_g_volume(tsdf_module, device=None):
+    """Slice G's empty volume, built with the given package's module."""
+    import numpy as np
+
+    g = SLICE_G
+    kw = dict(origin=np.asarray(g["origin"], np.float32), dims=g["dims"],
+              voxel_size=g["voxel"], truncation=g["trunc"],
+              min_ray=g["min_ray"], max_ray=g["max_ray"],
+              use_const_weight=False, with_color=True)
+    if device is not None:
+        kw["device"] = device
+    return tsdf_module.TsdfVolume(**kw)
+
+
+def slice_g_figures(vol, scene, tmp_dir):
+    """The host-side figures of a fused volume (either package): surface
+    points and mesh against the analytic street, the ESDF, and the host
+    seconds of the mesh and of its PLY export."""
+    import numpy as np
+
+    voxel = SLICE_G["voxel"]
+    pts, cols = vol.extract_surface_points()
+    t0 = time.perf_counter()
+    verts, faces, _ = vol.extract_mesh()
+    t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_faces = vol.export_mesh_ply(os.path.join(tmp_dir, "mesh.ply"))
+    t_ply = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    esdf = vol.esdf(max_distance=SLICE_G["esdf_max"])
+    t_esdf = time.perf_counter() - t0
+    t, obs = vol._grids(1e-4)
+    occ = (t < 0) & obs
+    sd_pts = surface_distance(pts, scene)
+    sd_verts = surface_distance(verts, scene)
+    return dict(
+        surface_points=int(len(pts)), colored=cols is not None,
+        surface_max_err_voxels=float(sd_pts.max() / voxel),
+        surface_p99_err_voxels=float(np.percentile(sd_pts, 99) / voxel),
+        mesh_vertices=int(len(verts)), mesh_faces=int(len(faces)),
+        ply_faces=int(n_faces),
+        mesh_max_err_voxels=float(sd_verts.max() / voxel),
+        mesh_p99_err_voxels=float(np.percentile(sd_verts, 99) / voxel),
+        surface_beyond_1p5_voxels=int((sd_pts > 1.5 * voxel).sum()),
+        mesh_beyond_1_voxel=int((sd_verts > voxel).sum()),
+        mesh_host_s=t_mesh, ply_host_s=t_ply, esdf_host_s=t_esdf,
+        occupied_voxels=int(occ.sum()),
+        esdf_max_on_occupied=float(esdf[occ].max()) if occ.any() else 0.0,
+        esdf_max=float(esdf.max()), esdf_mean=float(esdf.mean()),
+        observed_voxels=int(obs.sum()))
+
+
+def gate_slice_g_figures(r, jax_figs=None) -> None:
+    """test_tsdf.py's gates, 1.5 voxels for surface points and 1 voxel for
+    mesh vertices, on the 99th percentile; on the largest error, those
+    limits or 1.25 x the JAX package's largest error on the same sequence,
+    whichever is larger (both packages round the boxes' edges alike). The
+    ESDF is 0 on occupied voxels and at most ``esdf_max``."""
+    j = jax_figs or JAX_SLICE_G
+    gate("G", "surface point error, 99th percentile (voxels)",
+         r["surface_p99_err_voxels"], 1.5)
+    gate("G", "mesh vertex error, 99th percentile (voxels)",
+         r["mesh_p99_err_voxels"], 1.0)
+    gate("G", "surface point error, largest (voxels)",
+         r["surface_max_err_voxels"],
+         max(1.5, 1.25 * j["surface_max_err_voxels"]))
+    gate("G", "mesh vertex error, largest (voxels)", r["mesh_max_err_voxels"],
+         max(1.0, 1.25 * j["mesh_max_err_voxels"]))
+    gate("G", "ESDF on occupied voxels", r["esdf_max_on_occupied"], 0.0)
+    gate("G", "ESDF max", r["esdf_max"], SLICE_G["esdf_max"])
+    if r["surface_points"] < 1000 or r["mesh_faces"] < 1000:
+        fail(f"slice G: {r['surface_points']} surface points, "
+             f"{r['mesh_faces']} faces")
+
+
+def slice_g_cpu_agreement(card_vol, frames, dev):
+    """After the first rig step: the same integrations on the CPU at the
+    same grid. Returns the count of voxels whose pixel differs between the
+    devices in any of the integrations (u or v on a rounding boundary
+    within float noise), the updated voxels, and the largest difference of
+    tsdf, weight and colour on every other voxel, relative to
+    max(1, |value|)."""
+    import torch
+
+    from ov2slam_torch.mapping import tsdf as ttsdf
+    from ov2slam_torch.utils import lie_np
+
+    cpu = torch.device("cpu")
+    cpu_vol = slice_g_volume(ttsdf, cpu)
+    K = rig_intrinsics()
+    differ = torch.zeros(cpu_vol.tsdf.shape, dtype=torch.bool)
+    for depth, rgb, T_wc in frames:
+        cpu_vol.integrate(depth.cpu(), K, T_wc, rgb=rgb.cpu())
+        T_cw = lie_np.pose_inverse(T_wc).astype("float32")
+        pix = [ttsdf._voxel_pixels(
+            card_vol.dims, card_vol.origin, card_vol.voxel_size, T_cw,
+            K[0, 0], K[1, 1], K[0, 2], K[1, 2], depth.shape, d)[:2]
+            for d in (dev, cpu)]
+        differ |= ((pix[0][0].cpu() != pix[1][0])
+                   | (pix[0][1].cpu() != pix[1][1]))
+        del pix
+    updated = int((cpu_vol.weight > 0).sum())
+    keep = ~differ
+    err = {}
+    for name in ("tsdf", "weight", "color"):
+        a = getattr(card_vol, name).cpu()[keep]
+        b = getattr(cpu_vol, name)[keep]
+        err[name] = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+    return int(differ.sum()), updated, err
+
+
+def run_slice_g(dev):
+    """Slice G (see the module docstring); returns its figures."""
+    import tempfile
+
+    import torch
+
+    from ov2slam_torch.mapping import tsdf as ttsdf
+
+    g = SLICE_G
+    V = g["dims"][0] * g["dims"][1] * g["dims"][2]
+    scene = street_scene()
+    K = rig_intrinsics()
+    poses = rig_poses()
+    vol = slice_g_volume(ttsdf, dev)
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in (vol.tsdf, vol.weight, vol.color))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # each frame is rendered on the card just before it is fused; the
+    # events time the integration alone
+    ms, first = [], []
+    t0 = time.perf_counter()
+    for T_wc in poses:
+        depth, rgb = render_rgbd(scene, T_wc, K, dev)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        vol.integrate(depth, K, T_wc, rgb=rgb)
+        e.record()
+        ms.append((s, e))
+        if len(first) < g["n_cams"]:
+            first.append((depth.cpu(), rgb.cpu(), T_wc))
+        if vol.n_integrated == g["n_cams"]:
+            n_differ, n_updated, err = slice_g_cpu_agreement(vol, first,
+                                                             dev)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    ms = sorted(s.elapsed_time(e) for s, e in ms)
+    peak = torch.cuda.max_memory_allocated()
+    del first
+
+    # kernels per integration and per sweep: the same calls on an 8^3 grid
+    # (the sequence of launches does not depend on the grid's size)
+    small = ttsdf.TsdfVolume(origin=g["origin"], dims=(8, 8, 8),
+                             device=dev)
+    k_int, _ = kernel_launches_per_call(
+        lambda: small.integrate(depth, K, poses[0], rgb=rgb))
+    d_small = torch.zeros((8, 8, 8), device=dev)
+    k_esdf, _ = kernel_launches_per_call(
+        lambda: ttsdf._esdf_sweep(d_small, g["voxel"], 1))
+    del small, d_small
+
+    # the ESDF's sweeps alone, on the device (occupancy grid from the host)
+    t, obs = vol._grids(1e-4)
+    d0 = torch.as_tensor(((t < 0) & obs).astype("float32"), device=dev)
+    d0 = torch.where(d0 > 0, 0.0, 1e9)
+    n_sweeps = int(round(g["esdf_max"] / g["voxel"]))
+    esdf_ms = time_cuda(lambda: ttsdf._esdf_sweep(d0, g["voxel"], n_sweeps),
+                        3) / n_sweeps
+    del d0, t, obs, depth, rgb
+    with tempfile.TemporaryDirectory() as tmp:
+        figs = slice_g_figures(vol, scene, tmp)
+    bound = 1e3 * 40 * V / HBM_BYTES_PER_S
+    esdf_bound = 1e3 * 8 * V / HBM_BYTES_PER_S
+    res = dict(
+        slice="G", voxels=V, dims=list(g["dims"]), state_bytes=state_bytes,
+        integrations=vol.n_integrated, boxes=len(scene["box_lo"]),
+        render_and_fuse_s=loop_s, integrate_ms_median=ms[len(ms) // 2],
+        integrate_ms_min=ms[0], integrate_ms_max=ms[-1],
+        integrate_kernels=k_int, integrate_bound_ms=bound,
+        esdf_sweep_ms=esdf_ms, esdf_sweep_kernels=k_esdf,
+        esdf_sweep_bound_ms=esdf_bound, esdf_sweeps=n_sweeps,
+        max_memory_allocated=peak,
+        cpu_check=dict(integrations=g["n_cams"], updated_voxels=n_updated,
+                       pixel_differs=n_differ,
+                       pixel_differs_share=n_differ / max(n_updated, 1),
+                       max_rel_err=err), **figs)
+    print("[slice G] " + json.dumps(res), flush=True)
+    gate_slice_g_figures(res)
+    if n_updated == 0:
+        fail("slice G: the first rig step updated no voxel")
+    gate("G", "voxels whose pixel differs card vs CPU (share of updated)",
+         n_differ / n_updated, 1e-4)
+    for name, e in err.items():
+        gate("G", f"card vs CPU {name} (relative)", e, 1e-5)
+    j = JAX_SLICE_G
+    print(f"[slice G] {V} voxels ({state_bytes} B of state), "
+          f"{vol.n_integrated} integrations: {res['integrate_ms_median']:.4f}"
+          f" ms each (median; bound {bound:.4f} ms at 40 B/voxel), ESDF "
+          f"{esdf_ms:.4f} ms per sweep (bound {esdf_bound:.4f} ms), peak "
+          f"device memory {peak} B, mesh {figs['mesh_host_s']:.2f} s on the "
+          f"host | JAX package (reference_runs.py G, CPU): "
+          f"{j['surface_points']} surface points (max "
+          f"{j['surface_max_err_voxels']:.4f} voxels), {j['mesh_faces']} "
+          f"faces (max {j['mesh_max_err_voxels']:.4f} voxels), "
+          f"{j['occupied_voxels']} occupied; port: "
+          f"{figs['surface_points']} ({figs['surface_max_err_voxels']:.4f})"
+          f", {figs['mesh_faces']} ({figs['mesh_max_err_voxels']:.4f}), "
+          f"{figs['occupied_voxels']}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------- #
+# slice H: the command line over the KITTI and TartanAir layouts
+# ---------------------------------------------------------------------- #
+
+def write_slice_h(part: str, root: str):
+    """Render slice H's ``part`` ("kitti" or "tartanair"), write it in that
+    dataset's layout under ``root`` with a reference-format YAML for its
+    camera (full BA on, so every result file is written), and return the
+    command line that replays it (without ``--device``)."""
+    from ov2slam_torch.io import synthetic
+
+    seq = synthetic.generate_sequence(**SLICE_H[part])
+    data = os.path.join(root, part)
+    write_reference_yaml(seq.make_config(do_full_ba=True),
+                         os.path.join(root, "config.yaml"))
+    out = os.path.join(root, "out")
+    common = ["--config", os.path.join(root, "config.yaml"), "--out", out,
+              "--save-map", os.path.join(out, "map.npz")]
+    if part == "kitti":
+        write_kitti_dir(seq, data)
+        return ["--kitti", data, "--kitti-seq", "00", "--profile",
+                "accurate"] + common
+    write_tartanair_dir(seq, data)
+    return ["--tartanair", data, "--async"] + common
+
+
+def result_files(argv):
+    """The result files and viewer a ``run_slam`` command line ``argv``
+    left in its ``--out`` directory."""
+    out = argv[argv.index("--out") + 1]
+    return sorted(f for f in RESULT_FILES + ("viewer.html",)
+                  if os.path.exists(os.path.join(out, f)))
+
+
+def run_slice_h(part: str, dev):
+    """Slice H's ``part`` through ``run_slam.main`` on the card; returns the
+    report with its gates' figures and the scorer's launches."""
+    import tempfile
+
+    import numpy as np
+
+    from ov2slam_torch import run_slam
+    from ov2slam_torch.mapping.checkpoint import _ARRAYS, load_map
+    from ov2slam_torch.mapping.store import MapStore
+    from ov2slam_torch.ops import hamming
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        argv = write_slice_h(part, tmp)
+        t_write = time.perf_counter() - t0
+        # counts cover exactly this command line's run of the main path
+        hamming.match_scores_bits.launches = 0
+        hamming.match_scores_bits.shapes.clear()
+        hamming.match_scores_bits_plain.cuda_runs = 0
+        hamming.match_scores_plain.cuda_runs = 0
+        t0 = time.perf_counter()
+        report, slam = run_slam.main(argv + ["--device", str(dev)])
+        run_s = time.perf_counter() - t0
+        launches = hamming.match_scores_bits.launches
+        shapes = dict(hamming.match_scores_bits.shapes)
+        plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
+                      + hamming.match_scores_plain.cuda_runs)
+        files = result_files(argv)
+        fresh = MapStore(slam.cfg)
+        load_map(fresh, argv[argv.index("--save-map") + 1])
+        same = (all(np.array_equal(getattr(fresh, a), getattr(slam.map, a))
+                    for a in _ARRAYS)
+                and fresh._free_kf == slam.map._free_kf
+                and fresh._free_lm == slam.map._free_lm
+                and fresh._kf_seq_counter == slam.map._kf_seq_counter)
+    lc = slam.loop_closer
+    res = dict(slice="H", part=part, **SLICE_H[part], report=report,
+               resets=int(slam.n_resets), files=files, map_reloads_equal=same,
+               map_keyframes=int(fresh.n_keyframes), write_s=t_write,
+               run_s=run_s, scorer_launches=launches,
+               scorer_shapes=[[*k, v] for k, v in sorted(shapes.items())],
+               scorer_plain_runs_on_cuda=plain_cuda,
+               index_cube_bytes=(lc.index._cube.numel() if lc is not None
+                                 else 0),
+               worker_errors=getattr(slam, "n_worker_errors", None))
+    print(f"[slice H] {part}: " + json.dumps(res), flush=True)
+    return res
+
+
+def gate_slice_h(r) -> None:
+    part, rep = r["part"], r["report"]
+    jax_ate = JAX_SLICE_H[part]
+    gate("H", f"{part} ATE (m)", rep["ate_m"], max(0.09, 1.25 * jax_ate))
+    gate("H", f"{part} resets", r["resets"], 0)
+    if r["files"] != sorted(RESULT_FILES + ("viewer.html",)):
+        fail(f"slice H {part}: result files {r['files']}")
+    if not r["map_reloads_equal"]:
+        fail(f"slice H {part}: the saved map did not reload equal")
+    if r["scorer_plain_runs_on_cuda"] != 0:
+        fail(f"slice H {part}: the plain scorer ran on cuda")
+    if part == "kitti" and r["scorer_launches"] < 1:
+        fail("slice H kitti: the scorer kernel never launched under the CLI")
+    if r["worker_errors"]:
+        fail(f"slice H {part}: {r['worker_errors']} worker errors")
+    print(f"[slice H] {part}: ATE {rep['ate_m']} m (JAX package through "
+          f"the root run_slam.py: {jax_ate} m), {rep['keyframes']} "
+          f"keyframes, {rep['closures']} closures, {rep['fps']} fps, "
+          f"{r['scorer_launches']} scorer launches, map of "
+          f"{r['map_keyframes']} keyframes reloaded equal", flush=True)
+
+
+# ---------------------------------------------------------------------- #
+# phase entry: the fb-KLT flagship call
+# ---------------------------------------------------------------------- #
+
+def kernel_launches_per_call(fn, calls: int = 1):
+    """CUDA kernels per call of ``fn``, from a torch.profiler trace: the
+    device's kernel events, and the ``cudaLaunchKernel`` runtime calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sum(1 for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not kernels:
+        kernels = sum(len(e.kernels) for e in events)
+    api = sum(e.count for e in prof.key_averages()
+              if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    return kernels / calls, api / calls
+
+
+def phase_entry(dev):
+    """``entry()`` on the card: ms per call (CUDA events, warm, median of
+    20), kernels per call, and agreement with the same call on the CPU."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.entry import entry
+    from ov2slam_torch.ops.klt import klt_track
+
+    fn, args = entry()
+    ms = time_cuda(lambda: fn(*args), 20)
+    kernels, api = kernel_launches_per_call(lambda: fn(*args))
+    gpx, gst = (a.cpu().numpy() for a in fn(*args))
+    cfn, cargs = entry(device="cpu")
+    cpx, cst = (a.numpy() for a in cfn(*cargs))
+    same_status = float((gst == cst).mean())
+    both = gst & cst
+    pos_err = float(np.abs(gpx[both] - cpx[both]).max()) if both.any() \
+        else 0.0
+    # on two independent noise images no keypoint passes the residual
+    # gate: the forward positions, before the gates, are compared too
+    gf = klt_track(*args, win=9, iters=30)[0].cpu().numpy()
+    cf = klt_track(*cargs, win=9, iters=30)[0].numpy()
+    fwd_differ = float((np.abs(gf - cf).max(1) > 1e-2).mean())
+    res = dict(ms_per_call=ms, kernels_per_call=kernels,
+               cuda_launch_calls_per_call=api, keypoints=len(gst),
+               tracked_card=int(gst.sum()), tracked_cpu=int(cst.sum()),
+               status_equal_share=same_status, both_tracked=int(both.sum()),
+               max_pos_err_both_tracked=pos_err,
+               status_differ_share=1.0 - same_status,
+               forward_pos_differ_share=fwd_differ)
+    print("[entry] " + json.dumps(res), flush=True)
+    gate("entry", "status differ share", 1.0 - same_status, 0.01)
+    gate("entry", "position error where both track (px)", pos_err, 1e-2)
+    return res
+
+
 def launched_shapes_scorer(res, dev):
     """The scorer at every (M, N, Nq) slice ``res`` launched, per path
     (loop closure: Nq = N; relocalizer: Nq = max_kps = N / 2): one set of
@@ -962,6 +1598,12 @@ def main() -> int:
     gate_async(e, b)
     f = run_async_slice("F", dev)
     gate_async(f)
+    ent = phase_entry(dev)
+    g = run_slice_g(dev)
+    h = {}
+    for part in ("kitti", "tartanair"):
+        h[part] = run_slice_h(part, dev)
+        gate_slice_h(h[part])
 
     # each path's figures are at its last main-path query; the record's
     # top-level ones are slice B's, its launches those of all four
@@ -973,9 +1615,14 @@ def main() -> int:
         paths.append(dict(slice=res["slice"], path="loop closure",
                           launches=res["scorer_launches"], **main,
                           index_cube_bytes=res["index_cube_bytes"]))
-    for res in (c, d, e):
+    for res in (c, d, e, h["kitti"], h["tartanair"]):
+        if not res["scorer_shapes"]:
+            continue
         more, err = launched_shapes_scorer(res, dev)
         max_err = max(max_err, err)
+        if res["slice"] == "H":
+            for row in more:
+                row.update(part=res["part"], via="run_slam.main")
         if res is e:
             for row in more:
                 row.update(thread_streams=e["scorer_origins"],
@@ -987,9 +1634,27 @@ def main() -> int:
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
-        launches=sum(r["scorer_launches"] for r in (a, b, c, d, e, f)),
+        launches=sum(r["scorer_launches"] for r in (a, b, c, d, e, f,
+                                                    *h.values())),
         max_abs_err=max_err, library_ms=None, **top, paths=paths,
         phase3=rows, index_compaction=compaction)]}
+    # plain-torch work on the main paths, with its bound: candidates for
+    # hand kernels (no kernel of the repo's own stands behind them)
+    plain = {"plain_torch": [
+        dict(name="tsdf_integrate", source="ov2slam_torch/mapping/tsdf.py",
+             ms=g["integrate_ms_median"], calls=g["integrations"],
+             kernels_per_call=g["integrate_kernels"],
+             bound_ms=g["integrate_bound_ms"], bound_by="bytes",
+             voxels=g["voxels"]),
+        dict(name="esdf_sweep", source="ov2slam_torch/mapping/tsdf.py",
+             ms=g["esdf_sweep_ms"], calls=g["esdf_sweeps"],
+             kernels_per_call=g["esdf_sweep_kernels"],
+             bound_ms=g["esdf_sweep_bound_ms"], bound_by="bytes",
+             voxels=g["voxels"]),
+        dict(name="entry_fb_klt", source="ov2slam_torch/entry.py",
+             ms=ent["ms_per_call"], kernels_per_call=ent["kernels_per_call"],
+             cuda_launch_calls_per_call=ent["cuda_launch_calls_per_call"])]}
+    print(json.dumps(plain), flush=True)
     print(f"[chip_smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

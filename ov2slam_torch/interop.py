@@ -1,9 +1,11 @@
 """Carry state from numpy arrays into the port's objects.
 
 Takes another implementation's state — as numpy arrays, e.g. read off the
-JAX package's ``MapStore``, ``PlaceIndex`` and ``Camera`` — and builds the
-port's objects on a given device, so the same map, index and camera can be
-stepped on both sides. Imports numpy and torch only.
+JAX package's ``MapStore``, ``PlaceIndex``, ``Camera`` and ``TsdfVolume`` —
+and builds the port's objects on a given device, so the same map, index,
+camera and volume can be stepped on both sides. Imports numpy and torch
+only. (A map's state also travels through the checkpoint ``.npz``, whose
+format both packages share.)
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from .core.camera import Camera
 from .device import resolve_device
 from .loopclosure.index import PlaceIndex
 from .mapping.store import MapStore
+from .mapping.tsdf import TsdfVolume
 from .utils.config import SlamConfig
 
 
@@ -71,3 +74,34 @@ def brief_pattern(pattern: np.ndarray) -> np.ndarray:
     if p.shape != (256, 2, 2):
         raise ValueError(f"BRIEF pattern must be (256, 2, 2), got {p.shape}")
     return p
+
+
+def tsdf_volume(state: Mapping[str, object], device=None) -> TsdfVolume:
+    """A ``TsdfVolume`` on ``device`` holding another volume's state:
+    ``tsdf`` (V,), ``weight`` (V,), ``color`` (V, 3) or None, ``origin``,
+    ``dims``, the parameters (``voxel_size``, ``truncation``, ``min_ray``,
+    ``max_ray``, ``use_const_weight``, ``max_weight``) and
+    ``n_integrated``."""
+    color = state.get("color")
+    vol = TsdfVolume(
+        origin=np.asarray(state["origin"], np.float32),
+        dims=tuple(int(n) for n in state["dims"]),
+        voxel_size=float(state["voxel_size"]),
+        truncation=float(state["truncation"]),
+        min_ray=float(state["min_ray"]), max_ray=float(state["max_ray"]),
+        use_const_weight=bool(state["use_const_weight"]),
+        max_weight=float(state["max_weight"]),
+        with_color=color is not None, device=device)
+    V = int(np.prod(vol.dims))
+
+    def t(a, shape):
+        a = np.array(a, np.float32)     # a copy the volume owns
+        if a.shape != shape:
+            raise ValueError(f"TSDF state of shape {a.shape}, want {shape}")
+        return torch.from_numpy(a).to(vol.device)
+
+    vol.tsdf = t(state["tsdf"], (V,))
+    vol.weight = t(state["weight"], (V,))
+    vol.color = None if color is None else t(color, (V, 3))
+    vol.n_integrated = int(state.get("n_integrated", 0))
+    return vol

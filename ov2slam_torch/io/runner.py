@@ -5,13 +5,17 @@ Port of ``ov2slam_tpu/io/runner.py``: the equivalent of
 harness (`benchmark_scripts/euroc_bench.sh`): replay, optional real-time
 frame dropping (`getNewImage` drain-to-newest, `ov2slam.cpp:292-299`),
 end-of-sequence result writing, and ATE evaluation when ground truth is
-available. The JAX package's runner also writes an HTML viewer next to the
-results; the port has no viewer module yet, so this runner writes none.
+available. With an output directory it also writes ``viewer.html``, the
+interactive map viewer of ``io/viz.py``; a viewer that fails to export is
+logged as a warning and the run goes on (the JAX package's runner drops
+the error silently).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import os
 import time as _time
 from typing import Optional
 
@@ -20,6 +24,9 @@ import numpy as np
 from ..models.slam import SlamManager
 from ..utils.config import SlamConfig
 from ..utils.evaluation import ate_rmse, transform_body_to_cam
+from .viz import export_html_viewer
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -98,10 +105,9 @@ def run_sequence(cfg: SlamConfig, frames, times=None,
     wall = _time.perf_counter() - t_start
 
     if out_dir is not None:
-        import os
-
         os.makedirs(out_dir, exist_ok=True)
         slam.write_results(out_dir)
+        write_viewer(slam, out_dir)
 
     est_times, est_poses = slam.estimated_trajectory()
     result = RunResult(
@@ -130,3 +136,20 @@ def run_sequence(cfg: SlamConfig, frames, times=None,
             result.ate_scaled = ate_rmse(est_poses[:n], gt_poses[:n],
                                          align_scale=True)
     return result
+
+
+def write_viewer(slam, out_dir: str) -> Optional[str]:
+    """Write ``viewer.html`` (trajectory, keyframe frusta, landmark cloud;
+    the reference's `python_files/open3d_visualize_pose.py` role) into
+    ``out_dir``. The viewer is not a result of the run: an export that
+    fails is logged as a warning, and None is returned."""
+    path = os.path.join(out_dir, "viewer.html")
+    try:
+        _, traj = slam.estimated_trajectory()
+        kf_sel = np.nonzero(slam.map.kf_valid)[0]
+        return export_html_viewer(traj, slam.map, path,
+                                  kf_poses=slam.map.kf_poses[kf_sel])
+    except Exception as exc:
+        log.warning("viewer export to %s failed: %r", path, exc,
+                    exc_info=True)
+        return None

@@ -13,8 +13,17 @@ synchronous ``SlamManager``, which is deterministic; ``chip_smoke.py``
 runs the same sequence and config through the asynchronous manager,
 whose runs depend on thread timing, and prints this figure beside its
 gate. Slice F (paced asynchronous arrival) has no synchronous
-counterpart. ``chip_smoke.py`` gates the port
-against these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
+counterpart. Slice G fuses the CARLA rig's 180 RGB-D frames into the TSDF
+volume and prints ``chip_smoke.slice_g_figures``; slice H writes the
+KITTI- and TartanAir-layout directories and runs the root ``run_slam.py``
+over them in-process (``--port``: ``python -m ov2slam_torch.run_slam``).
+Slice P is test_pipeline.py::
+test_async_paced_arrival_bench_conditions on the port on the CPU, with
+the front end's wait and map lock as ``--rule`` says (once per
+``--seeds`` value: the runs differ by timing only); with ``--port`` and
+``--rule``, slices E and F run as ``chip_smoke.run_async_slice`` does,
+under that rule. ``chip_smoke.py``
+gates the port against these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
 ``--device`` (``cpu`` by default, or ``cuda``) instead. ``--seeds`` runs
 once per value: the port's ``SlamManager(seed=...)``, which seeds its
 RANSAC generators, or for the JAX package its PRNG keys (manager s, loop
@@ -24,6 +33,9 @@ ones. A seed given twice shows whether two runs agree to the last bit.
     JAX_PLATFORMS=cpu python reference_runs.py A B
     JAX_PLATFORMS=cpu python reference_runs.py C D
     JAX_PLATFORMS=cpu python reference_runs.py E
+    JAX_PLATFORMS=cpu python reference_runs.py G H
+    python reference_runs.py --port P --rule jax-wait --seeds 1 2 3
+    python3 reference_runs.py --port --device cuda --rule jax-wait E F
     JAX_PLATFORMS=cpu python reference_runs.py A --seeds 1 2 3
     python reference_runs.py --port A --seeds 1 2 3
     python reference_runs.py --port E
@@ -60,6 +72,185 @@ def run(name, slam, seq, ate_rmse, lie_np):
     return poses, res, wall
 
 
+def run_g(args):
+    """Slice G: the CARLA rig's 180 RGB-D frames (rendered with
+    ``chip_smoke.render_rgbd`` on the CPU) fused into slice G's volume of
+    the JAX package (or of the port with ``--port``), then the figures
+    ``chip_smoke.slice_g_figures`` gates on. The ms per integration is a
+    CPU figure."""
+    import tempfile
+
+    import chip_smoke
+
+    if args.port:
+        from ov2slam_torch.mapping import tsdf
+        vol = chip_smoke.slice_g_volume(tsdf, args.device)
+        package = "ov2slam_torch"
+    else:
+        from ov2slam_tpu.mapping import tsdf
+        vol = chip_smoke.slice_g_volume(tsdf)
+        package = "ov2slam_tpu"
+    scene = chip_smoke.street_scene()
+    K = chip_smoke.rig_intrinsics()
+    walls = []
+    for T_wc in chip_smoke.rig_poses():
+        depth, rgb = chip_smoke.render_rgbd(scene, T_wc, K, "cpu")
+        t0 = time.perf_counter()
+        vol.integrate(depth.numpy(), K, T_wc, rgb=rgb.numpy())
+        if args.port:
+            from ov2slam_torch.device import synchronize
+            synchronize(vol.device)
+        else:
+            vol.tsdf.block_until_ready()
+        walls.append(time.perf_counter() - t0)
+    with tempfile.TemporaryDirectory() as tmp:
+        figs = chip_smoke.slice_g_figures(vol, scene, tmp)
+    return dict(slice="G", package=package,
+                backend=args.device if args.port else "cpu",
+                integrations=vol.n_integrated,
+                integrate_ms_median=1e3 * sorted(walls)[len(walls) // 2],
+                **figs)
+
+
+def run_h(part, args):
+    """Slice H: the KITTI-layout (``part`` "kitti") or TartanAir-layout
+    ("tartanair") directory chip_smoke writes, through the root
+    ``run_slam.py`` (the JAX package) or, with ``--port``, through
+    ``python -m ov2slam_torch.run_slam --device``. Returns the report."""
+    import contextlib
+    import io
+    import tempfile
+
+    import chip_smoke
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = chip_smoke.write_slice_h(part, tmp)
+        t0 = time.perf_counter()
+        if args.port:
+            from ov2slam_torch import run_slam
+
+            report, slam = run_slam.main(argv + ["--device", args.device])
+            resets = int(slam.n_resets)
+        else:
+            import jax
+
+            import run_slam
+
+            # the root script points JAX's compilation cache at a fixed
+            # directory in the home; this run keeps no cache
+            update = jax.config.update
+
+            def no_cache(key, value):
+                if "cache" not in key:
+                    update(key, value)
+            k = argv.index("--save-map")      # the port's flag only
+            root_argv = argv[:k] + argv[k + 2:]
+            buf = io.StringIO()
+            jax.config.update = no_cache
+            try:
+                with contextlib.redirect_stdout(buf):
+                    sys.argv = ["run_slam.py"] + root_argv
+                    run_slam.main()
+            finally:
+                jax.config.update = update
+            report = json.loads(buf.getvalue().strip().splitlines()[-1])
+            resets = None
+        wall = time.perf_counter() - t0
+        files = chip_smoke.result_files(argv)
+    return dict(slice="H", part=part,
+                package="ov2slam_torch" if args.port else "ov2slam_tpu",
+                backend=args.device if args.port else "cpu", **report,
+                resets=resets, files=files, run_s=wall)
+
+
+def paced_manager(rule: str):
+    """The port's ``AsyncSlamManager`` with the front end's wait and lock
+    as ``rule`` says: "tree" (as the package stands: a frame waits until
+    every queued keyframe is mapped and holds the map lock for the whole
+    frame), "jax-wait" (the JAX package's wait, past one unmapped
+    keyframe), or "narrow-lock" (the steady chained state dispatches its
+    launches outside the map lock; resolving a frame stays under it)."""
+    from ov2slam_torch.models.pipeline import AsyncSlamManager
+    from ov2slam_torch.models.slam import SlamManager
+
+    class Paced(AsyncSlamManager):
+        def _wait_for_mapping(self, allowed: int):
+            with self._pending_cv:
+                deadline = float(self.cfg.backpressure_wait_s)
+                while self._unmapped > allowed and deadline > 0:
+                    self._pending_cv.wait(0.05)
+                    deadline -= 0.05
+
+        def process_frame(self, img_left, img_right=None, time=0.0):
+            self.frontend.wait_pending()
+            self._wait_for_mapping(1 if rule == "jax-wait" else 0)
+            fe = self.frontend
+            steady = False
+            if rule == "narrow-lock":
+                with self.map_lock:
+                    steady = (self.cfg.pipelined_frontend
+                              and self._pipeline_ready(fe))
+                    if steady:
+                        if fe.n_pending >= max(1, self.cfg.pipeline_depth):
+                            self._resolve_oldest()
+                        steady = self._pipeline_ready(fe)
+            if steady:
+                self.frame_id += 1
+                fe.dispatch_frame(img_left, time)
+                self._prev_rights.append(img_right)
+                return fe.frame.T_wc
+            with self.map_lock:
+                return SlamManager.process_frame(self, img_left, img_right,
+                                                 time)
+
+    if rule not in ("tree", "jax-wait", "narrow-lock"):
+        raise SystemExit(f"reference_runs: unknown rule {rule}")
+    return Paced if rule != "tree" else AsyncSlamManager
+
+
+def run_paced(rule: str):
+    """test_pipeline.py::test_async_paced_arrival_bench_conditions on the
+    port (``chip_smoke.paced_arrival``, slice F's stream and config) with
+    the front end's ``rule``: frames dropped, ATE, and the worker's local
+    BA and stereo-mapping ms per keyframe."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from ov2slam_torch.io import synthetic
+    from ov2slam_torch.utils import profiles
+    from ov2slam_torch.utils.evaluation import ate_rmse
+    from ov2slam_torch.utils.profiler import Profiler
+
+    torch.set_num_threads(1)
+    seq = synthetic.stream_sequence(**chip_smoke.slice_configs()["F"][0],
+                                    realism=synthetic.DEFAULT_REALISM)
+    frames = list(seq)
+    cfg = chip_smoke.slice_config("F", seq, profiles)
+    slam = paced_manager(rule)(cfg, device="cpu")
+    prof = Profiler.instance()
+    prof.reset()
+    try:
+        dropped, pace_fps, med = chip_smoke.paced_arrival(slam, frames)
+        times, poses = slam.estimated_trajectory()
+    finally:
+        slam.close()
+    gt = np.asarray(seq.gt_poses)
+    idx = np.clip(np.searchsorted(np.asarray(seq.times), times), 0,
+                  len(gt) - 1)
+    st = prof.stats()
+    paced = len(frames) - chip_smoke.SLICE_F_WARM
+    ate = ate_rmse(poses, gt[idx], align_scale=False)
+    return dict(slice="F", rule=rule, package="ov2slam_torch",
+                backend="cpu", dropped=dropped, paced_frames=paced,
+                pace_fps=pace_fps, flat_out_fps=1.0 / med, ate_m=ate,
+                worker_errors=slam.n_worker_errors,
+                local_ba_ms=st.get("3.LocalBA", {}).get("mean_ms"),
+                stereo_map_ms=st.get("2.KF_StereoMap", {}).get("mean_ms"),
+                passed=bool(dropped <= chip_smoke.SLICE_F_MAX_DROP_SHARE
+                            * paced and ate < chip_smoke.SLICE_F_MAX_ATE))
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("slices", nargs="*", default=["A", "B"])
@@ -67,6 +258,11 @@ def main(argv) -> int:
                     help="run ov2slam_torch on the CPU instead of JAX")
     ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
                     help="the port's device (with --port)")
+    ap.add_argument("--rule", default=None,
+                    choices=["tree", "jax-wait", "narrow-lock"],
+                    help="the front end's wait and lock rule: slice P (the "
+                    "paced-arrival test on the port, CPU), or with --port "
+                    "slices E and F")
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
                     help="default: the port's seed 42, the JAX package's "
                     "own keys")
@@ -109,6 +305,26 @@ def main(argv) -> int:
         package, backend = "ov2slam_tpu", "cpu"
 
     for name in args.slices:
+        if name == "P":
+            for _ in args.seeds or [0]:      # one run per value given
+                print(json.dumps(run_paced(args.rule or "tree")), flush=True)
+            continue
+        if args.port and args.rule and name in ("E", "F"):
+            # chip_smoke's asynchronous slice with the front end's rule
+            import torch
+
+            from ov2slam_torch.models import pipeline
+            pipeline.AsyncSlamManager = paced_manager(args.rule)
+            r = chip_smoke.run_async_slice(name, torch.device(args.device))
+            print(json.dumps(dict(rule=args.rule, **r)), flush=True)
+            continue
+        if name == "G":
+            print(json.dumps(run_g(args)), flush=True)
+            continue
+        if name == "H":
+            for part in ("kitti", "tartanair"):
+                print(json.dumps(run_h(part, args)), flush=True)
+            continue
         seq, cfg = chip_smoke.make_slice(name, synthetic, profiles)
         for extra, slam in managers(cfg):
             poses, res, wall = run(name, slam, seq, ate_rmse, lie_np)

@@ -121,6 +121,66 @@ def test_slices_e_and_f():
     assert not cfgs["F"].use_loop_closer
 
 
+def test_slices_g_and_h(monkeypatch):
+    """Slice G is the CARLA rig: six 800x600 90-degree RGB-D cameras yawed
+    60 degrees apart over 30 one-metre rig steps (180 integrations) into a
+    640x640x64 grid; its ray caster gives the analytic depth of the ground
+    and of a box face, and its analytic distance measures the surfaces.
+    Slice H replays slice A's loop at KITTI's 1241x376 and slice F's arc
+    at 640x480."""
+    import numpy as np
+
+    import chip_smoke
+    from ov2slam_torch.utils import lie_np
+
+    g = chip_smoke.SLICE_G
+    assert g["dims"] == (640, 640, 64) and np.prod(g["dims"]) == 26214400
+    assert (g["voxel"], g["trunc"], g["min_ray"], g["max_ray"]) == (
+        0.1, 0.3, 0.5, 10.0)
+    K = chip_smoke.rig_intrinsics()
+    np.testing.assert_allclose(K[0], [400.0, 0.0, 400.0])
+    poses = chip_smoke.rig_poses()
+    assert len(poses) == 180
+    axes = np.array([lie_np.pose_to_matrix(T)[:3, 2] for T in poses[:6]])
+    np.testing.assert_allclose(axes[:, 2], 0.0, atol=1e-12)
+    yaws = np.degrees(np.arctan2(axes[:, 1], axes[:, 0])) % 360
+    np.testing.assert_allclose(yaws, [0, 60, 120, 180, 240, 300], atol=1e-9)
+    np.testing.assert_allclose(poses[6][4:] - poses[0][4:], [1.0, 0, 0])
+
+    # one box straight ahead of the first camera, rendered small
+    monkeypatch.setitem(g, "width", 80)
+    monkeypatch.setitem(g, "height", 60)
+    K = chip_smoke.rig_intrinsics()
+    T = poses[0]
+    x0 = float(T[4])
+    scene = dict(box_lo=np.array([[x0 + 4.0, -1.0, 0.0]]),
+                 box_hi=np.array([[x0 + 5.0, 1.0, 3.0]]),
+                 box_rgb=np.array([[200.0, 10.0, 10.0]]),
+                 ground_rgb=np.array([90.0, 90.0, 90.0]))
+    depth, rgb = chip_smoke.render_rgbd(scene, T, K, "cpu")
+    assert depth.shape == (60, 80) and rgb.shape == (60, 80, 3)
+    assert float(depth[30, 40]) == pytest.approx(4.0, abs=1e-5)
+    assert rgb[30, 40].tolist() == [200.0, 10.0, 10.0]
+    # a ground pixel below the box: depth = height * f / (v - cy)
+    v = 59
+    assert float(depth[v, 5]) == pytest.approx(
+        g["cam_height"] * K[1, 1] / (v - K[1, 2]), rel=1e-5)
+    assert not torch.isfinite(depth[0, 0])      # sky
+    d = chip_smoke.surface_distance(
+        np.array([[x0 + 3.9, 0.0, 1.0], [x0 + 4.5, 0.0, 3.2],
+                  [x0, 5.0, 0.25]]), scene)
+    np.testing.assert_allclose(d, [0.1, 0.2, 0.25], atol=1e-9)
+
+    h = chip_smoke.SLICE_H
+    assert (h["kitti"]["width"], h["kitti"]["height"]) == (1241, 376)
+    assert (h["tartanair"]["width"], h["tartanair"]["height"]) == (640, 480)
+    scene = chip_smoke.street_scene()
+    assert 20 <= len(scene["box_lo"]) <= 40
+    lo_y, hi_y = scene["box_lo"][:, 1], scene["box_hi"][:, 1]
+    assert (np.sign(lo_y) == np.sign(hi_y)).all()         # off the road
+    assert (np.minimum(np.abs(lo_y), np.abs(hi_y)) >= 3.5).all()
+
+
 def test_package_imports_without_cuda():
     # a fresh interpreter with CUDA hidden: every module imports, and
     # nothing imports jax along the way
@@ -153,7 +213,7 @@ def test_resolve_device_requires_gpu(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is False
 
 
-def test_entry_points_default_to_gpu(monkeypatch):
+def test_entry_points_default_to_gpu(monkeypatch, tmp_path):
     from ov2slam_torch.io.synthetic import generate_sequence
     from ov2slam_torch.loopclosure.index import PlaceIndex
     from ov2slam_torch.models.slam import SlamManager
@@ -165,6 +225,67 @@ def test_entry_points_default_to_gpu(monkeypatch):
                             n_points=50).make_config(use_relocalizer=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SlamManager(cfg)
+
+    import numpy as np
+
+    from ov2slam_torch import run_slam
+    from ov2slam_torch.entry import entry
+    from ov2slam_torch.io.rgbd import fuse_rgbd_frames
+    from ov2slam_torch.mapping.tsdf import TsdfVolume
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TsdfVolume(origin=np.zeros(3), dims=(4, 4, 4))
+    K = np.array([[50.0, 0, 8], [0, 50.0, 6], [0, 0, 1]])
+    frame = (np.ones((12, 16), np.float32), None, K,
+             np.array([1.0, 0, 0, 0, 0, 0, 0]))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fuse_rgbd_frames([frame])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_slam.main(["--synthetic", "arc", "--frames", "2", "--out",
+                       str(tmp_path)])
+    # an explicit "cpu" is the only way onto the CPU
+    assert TsdfVolume(origin=np.zeros(3), dims=(4, 4, 4),
+                      device="cpu").tsdf.device.type == "cpu"
+    assert fuse_rgbd_frames([frame], device="cpu")[0].shape == (48, 3)
+    assert entry(device="cpu")[1][2].device.type == "cpu"
+
+
+def test_entry_matches_the_jax_entry():
+    """``entry(device="cpu")`` tracks the JAX ``entry()``'s arrays (the same
+    seed-0 noise images and keypoints) as the JAX function does, at
+    test_torch_klt.py's tolerance: status equal on >= 97% of keypoints,
+    positions within 0.01 px where both succeed. On two independent noise
+    images no keypoint passes the residual gate in either package, so the
+    forward positions (before the gates) are also compared: within 0.01 px
+    on >= 90% of keypoints."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    import __graft_entry__
+    from ov2slam_torch.entry import entry, entry_arrays
+    from ov2slam_torch.ops import klt as tklt
+    from ov2slam_tpu.ops import klt as jklt
+
+    torch.set_num_threads(1)
+    jfn, jargs = __graft_entry__.entry()
+    tfn, targs = entry(device="cpu")
+    img0, img1, kps = entry_arrays()
+    np.testing.assert_array_equal(np.asarray(jargs[0][0]), img0)
+    np.testing.assert_array_equal(np.asarray(jargs[1][0]), img1)
+    np.testing.assert_array_equal(np.asarray(jargs[2]), kps)
+    for jl, tl in zip(jargs[0] + jargs[1], targs[0] + targs[1]):
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-3)
+    jpx, jst = (np.asarray(a) for a in jfn(*jargs))
+    tpx, tst = (a.numpy() for a in tfn(*targs))
+    assert tpx.shape == (256, 2) and tst.shape == (256,)
+    assert (tst == jst).mean() >= 0.97
+    both = tst & jst
+    np.testing.assert_allclose(tpx[both], jpx[both], atol=0.01)
+    jf = np.asarray(jklt.klt_track(*jargs, win=9, iters=30)[0])
+    tf = tklt.klt_track(*targs, win=9, iters=30)[0].numpy()
+    assert (np.abs(tf - jf).max(1) <= 0.01).mean() >= 0.9
 
 
 def test_unsupported_configurations_raise():

@@ -296,7 +296,7 @@ def test_runner_on_synthetic(tmp_path):
     assert res.n_keyframes >= 1
     assert res.ate is not None and res.ate < 0.1
     assert (tmp_path / "ov2slam_traj.txt").exists()
-    assert not (tmp_path / "viewer.html").exists()
+    assert (tmp_path / "viewer.html").exists()
 
 
 def test_runner_drives_the_async_manager():

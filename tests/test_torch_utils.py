@@ -19,7 +19,8 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COPIED = ["utils/config.py", "utils/lie_np.py", "utils/trajectory.py",
           "utils/evaluation.py", "utils/profiles.py", "mapping/store.py",
-          "io/synthetic.py", "io/euroc.py"]
+          "io/synthetic.py", "io/euroc.py", "io/kitti.py",
+          "io/tartanair.py", "io/viz.py", "mapping/checkpoint.py"]
 
 
 def _body(path):
