@@ -59,7 +59,22 @@ Phases (any failure exits non-zero):
      ``--async``), each with a reference-format YAML. Gates: ATE <=
      max(0.09 m, 1.25 x the JAX package's through the root run_slam.py),
      0 resets, the six result files and viewer.html written, the saved
-     map reloaded equal, the scorer launched under the KITTI run.
+     map reloaded equal, the scorer launched under the KITTI run;
+ 13. slice I: the distributed Schur bundle adjustment
+     (``parallel/dist_ba.py``, no kernel of the repo's own):
+     ``entry.dryrun_multichip(8)`` on the card (its two 28-KF windows must
+     lower the mean translation error, the skewed one with shard padding
+     below 15%), then the 64-KF window of ``parallel/problems.py`` (61704
+     observations, 5 LM iterations) at 1, 2, 4 and 8 in-process shards.
+     Gates: the mean |t| error below 0.35 x its start and at most max(that,
+     1.25 x the JAX package's), the 8-shard cost within 1.05 x the
+     single-card ``ba_solve``'s, every shard count's poses within 5e-4 rad
+     and m of the 1-shard solve's, and the card's 8-shard poses within
+     5e-4 of the same call on the CPU. Reports ms and CUDA kernels per LM
+     iteration, the padding and work efficiency of each sharding, the
+     bytes a cross-process reduction carries per iteration and the bound;
+     with two or more cards, the 8-shard solve again as 2 NCCL ranks (else
+     "[I] nccl: skipped, 1 device").
 For E and F it also prints the synchronizing CUDA calls that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports on the front end's
 thread during 10 chained dispatches, and the worker stream's handle beside
@@ -69,7 +84,8 @@ populated prefix of the index, every M it took; for C, D, E and H every
 (M, N, Nq) the slice launched, on the loop-closure and the relocalizer
 path) against its plain versions and timed at the last, one JSON line of
 the plain-torch work with a bound (TSDF integration, the ESDF sweep,
-entry()'s fb-KLT), one JSON line of kernel records, the card's name and
+entry()'s fb-KLT with an estimate of its dependent chain, an LM iteration
+of the distributed BA), one JSON line of kernel records, the card's name and
 power limit, and the final ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
@@ -86,9 +102,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): HBM rate and int8 tensor-core rate
+# H100 SXM published peaks (dense): HBM rate, int8 tensor-core rate, f32
+# outside the tensor cores (the solvers run with TF32 off), and the SM
+# clock at the 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+F32_FLOP_PER_S = 67e12
+SM_CLOCK_HZ = 1.98e9
 
 # slice B gate: max(0.09 m, 1.25 x the JAX package's ATE on the same
 # sequence and config, measured on the CPU by reference_runs.py)
@@ -146,6 +166,27 @@ JAX_SLICE_G = dict(surface_points=65426,
                    mesh_max_err_voxels=3.1514662952805628,
                    mesh_p99_err_voxels=0.48445747531946637,
                    occupied_voxels=266339)
+# slice I: the distributed Schur BA (parallel/dist_ba.py) on
+# parallel/problems.py's windows: the JAX dryrun's two 28-KF problems (3
+# LM iterations, through entry.dryrun_multichip) and the 64-KF window, the
+# largest realistic_window_problem keeps whole (61704 observations under
+# local_ba_max_obs = 65536) and the dense Schur limit of solvers/ba.py, at
+# 1, 2, 4 and 8 in-process shards (5 iterations)
+SLICE_I_PROBLEMS = (
+    ("dryrun", dict(n_kf=28, n_lm=6000, seed=0), 3),
+    ("dryrun_skewed", dict(n_kf=28, n_lm=6000, seed=1, skew=0.25), 3),
+    ("window64", dict(n_kf=64, n_lm=12000, seed=0), 5))
+SLICE_I_SHARDS = (1, 2, 4, 8)
+SLICE_I_ROBUST_TH = 5.9915
+# slice I gates: test_dist_ba.py's (mean |t| error below 0.35 x its start,
+# the cost within 1.05 x the single-device solve's, 5e-4 rad and m between
+# reduction orders), and the error at most 1.25 x the JAX package's on the
+# same problem (reference_runs.py I, CPU, 8 virtual devices)
+SLICE_I_T_SHARE = 0.35
+SLICE_I_COST_SHARE = 1.05
+SLICE_I_POSE_TOL = 5e-4
+JAX_SLICE_I = dict(window64_t_err_after=0.0028474562114035947,
+                   window64_cost=8571.26171875)
 RESULT_FILES = ("ov2slam_traj.txt", "ov2slam_kfs_traj.txt",
                 "ov2slam_traj_kitti.txt", "ov2slam_fullba_kfs_traj.txt",
                 "ov2slam_full_traj_wlc.txt", "ov2slam_full_traj_wlc_opt.txt")
@@ -1281,10 +1322,10 @@ def run_slice_g(dev):
     # (the sequence of launches does not depend on the grid's size)
     small = ttsdf.TsdfVolume(origin=g["origin"], dims=(8, 8, 8),
                              device=dev)
-    k_int, _ = kernel_launches_per_call(
+    k_int, _, _ = kernel_launches_per_call(
         lambda: small.integrate(depth, K, poses[0], rgb=rgb))
     d_small = torch.zeros((8, 8, 8), device=dev)
-    k_esdf, _ = kernel_launches_per_call(
+    k_esdf, _, _ = kernel_launches_per_call(
         lambda: ttsdf._esdf_sweep(d_small, g["voxel"], 1))
     del small, d_small
 
@@ -1445,12 +1486,222 @@ def gate_slice_h(r) -> None:
 
 
 # ---------------------------------------------------------------------- #
+# slice I: distributed Schur bundle adjustment
+# ---------------------------------------------------------------------- #
+
+def dist_ba_work(prob, shard_np, iters: int):
+    """What ``iters`` LM iterations of the distributed solve need on
+    ``prob``'s data, per iteration: f32 operations (2 per multiply-add of
+    the solver's contractions, by the data's sparsity: the blocks of each
+    observation, of each (landmark, pose) pair of Z, of each pair of poses
+    that see one landmark in S_corr, and the LU of the (6 Kw)² system;
+    the residual and Jacobian formation, O(observations), left out) and
+    bytes (the observations read once: pixels 8 B, pose and landmark
+    indices 4 B each, camera 1 B; poses and landmarks read and written
+    once, over ``iters``); and the operations of the dense S_corr einsum
+    the code runs over ``shard_np``'s padded landmark axis."""
+    import numpy as np
+
+    Kw = len(prob.kf_ids)
+    v = prob.obs_valid
+    kf = prob.obs_kf[v].astype(np.int64)
+    lm = prob.obs_lm[v].astype(np.int64)
+    pairs = np.unique(lm * Kw + kf)
+    per_lm_poses = np.bincount(pairs // Kw)
+    n_lm = int((per_lm_poses > 0).sum())
+    macs = (len(kf) * (72 + 18 + 12 + 6 + 36)
+            + len(pairs) * (54 + 18 + 18)
+            + int((per_lm_poses.astype(np.int64) ** 2).sum()) * 108)
+    ops = 2.0 * macs + 2.0 * (6 * Kw) ** 3 / 3.0
+    nbytes = (len(kf) * 17 + 2 * (Kw * 28 + n_lm * 12)) / iters
+    n, per_lm = shard_np["lm_pos"].shape[:2]
+    dense = 2.0 * n * per_lm * Kw * Kw * 108
+    return dict(ops=ops, bytes=nbytes, dense_ops=dense,
+                bound_ms=1e3 * max(ops / F32_FLOP_PER_S,
+                                   nbytes / HBM_BYTES_PER_S),
+                bound_by=("operations" if ops / F32_FLOP_PER_S
+                          >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                dense_bound_ms=1e3 * dense / F32_FLOP_PER_S,
+                window_landmarks=n_lm, lm_pose_pairs=int(len(pairs)))
+
+
+def reduction_bytes(Kw: int) -> int:
+    """Bytes one LM iteration all-reduces across processes: Hpp, bp,
+    S_corr, b_corr and the two costs, summed in f64."""
+    return 8 * (Kw * 36 + Kw * 6 + Kw * Kw * 36 + Kw * 6 + 2)
+
+
+def sharded_solve_figures(prob, params, gt, n: int, iters: int, dev):
+    """The 64-KF (or any) window solved with ``n`` in-process shards
+    through ``distributed_ba_solve``, and its step timed: ms per LM
+    iteration (CUDA events around the whole solve, median of 5, over
+    ``iters``), CUDA kernels and their device ms per iteration (a
+    torch.profiler trace of the solve less one of the same step with 0
+    iterations), the padding and
+    work efficiency of the sharding (as scaling_bench.py defines them) and
+    the work's bound. Returns (figures, poses)."""
+    import torch
+
+    from ov2slam_torch.entry import mean_t_err
+    from ov2slam_torch.parallel import dist_ba
+
+    th = SLICE_I_ROBUST_TH
+    Kw, n_obs = len(prob.kf_ids), int(prob.obs_valid.sum())
+    mesh = dist_ba.make_mesh(n)
+    shard_np = dist_ba.shard_ba_problem(prob, n)
+    shards = dist_ba.put_sharded(mesh, shard_np, Kw, dev)
+    step = dist_ba.make_distributed_ba(mesh, params, th, iters)
+    step0 = dist_ba.make_distributed_ba(mesh, params, th, 0)
+    poses_in = torch.as_tensor(prob.kf_poses, device=dev)
+    fixed_in = torch.as_tensor(prob.kf_fixed, device=dev)
+    poses, _, cost = dist_ba.distributed_ba_solve(
+        mesh, prob, params, robust_th=th, iters=iters, device=dev)
+    ms = time_cuda(lambda: step(poses_in, fixed_in, shards), 5) / iters
+    k_all, api_all, dev_all = kernel_launches_per_call(
+        lambda: step(poses_in, fixed_in, shards))
+    k_set, api_set, dev_set = kernel_launches_per_call(
+        lambda: step0(poses_in, fixed_in, shards))
+    per_shard = int(shard_np["obs_valid"].shape[1])
+    return dict(
+        keyframes=Kw, obs=n_obs, shards=n, iters=iters, ms_per_iter=ms,
+        kernels_per_iter=(k_all - k_set) / iters,
+        cuda_launch_calls_per_iter=(api_all - api_set) / iters,
+        device_ms_per_iter=(dev_all - dev_set) / iters,
+        setup_kernels=k_set,
+        padding=dist_ba.shard_padding_overhead(shard_np),
+        work_efficiency=(n_obs / n) / per_shard, obs_per_shard=per_shard,
+        lm_per_shard=int(shard_np["lm_pos"].shape[1]), cost=cost,
+        t_err_after=mean_t_err(poses, prob, gt),
+        reduction_bytes_per_iter=reduction_bytes(Kw),
+        **dist_ba_work(prob, shard_np, iters)), poses
+
+
+def run_slice_i(dev):
+    """Slice I: ``entry.dryrun_multichip(8)`` on the card (its checks
+    raise), the dryrun's 28-KF window timed at 8 shards, then the 64-KF
+    window at 1, 2, 4 and 8 in-process shards with its gates (see the
+    module docstring). With two or more cards, the 8-shard solve again as
+    2 NCCL ranks."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.entry import dryrun_multichip, mean_t_err
+    from ov2slam_torch.ops import hamming
+    from ov2slam_torch.parallel import dist_ba, worker
+    from ov2slam_torch.parallel.problems import realistic_window_problem
+    from ov2slam_torch.solvers.ba import ba_solve
+    from ov2slam_torch.utils import lie_np
+
+    t0 = time.perf_counter()
+    th = SLICE_I_ROBUST_TH
+    # the slice launches no kernel of the repo's own: its count stays 0
+    hamming.match_scores_bits.launches = 0
+    res = dict(dryrun=dryrun_multichip(8))
+    _, kw, iters = SLICE_I_PROBLEMS[0]
+    _, prob, params, gt = realistic_window_problem(**kw, device=dev)
+    res["dryrun"]["timed"], _ = sharded_solve_figures(
+        prob, params, gt, 8, iters, dev)
+    print("[slice I] dryrun window, 8 shards: "
+          + json.dumps(res["dryrun"]["timed"]), flush=True)
+
+    _, kw, iters = SLICE_I_PROBLEMS[2]
+    _, prob, params, gt = realistic_window_problem(**kw, device=dev)
+    t_before = mean_t_err(prob.kf_poses, prob, gt)
+    jax_t = JAX_SLICE_I["window64_t_err_after"]
+    rows, solved = [], {}
+    for n in SLICE_I_SHARDS:
+        row, solved[n] = sharded_solve_figures(prob, params, gt, n, iters,
+                                               dev)
+        rot, tr = lie_np.pose_distance(solved[n].astype(np.float64),
+                                       solved[1].astype(np.float64))
+        row.update(pose_vs_1_shard_m=float(tr.max()),
+                   pose_vs_1_shard_rad=float(rot.max()))
+        rows.append(row)
+        print(f"[slice I] 64-KF window, {n} shards: " + json.dumps(row),
+              flush=True)
+        gate("I", f"{n}-shard mean |t| error (m)", row["t_err_after"],
+             SLICE_I_T_SHARE * t_before)
+        gate("I", f"{n}-shard mean |t| error, against the JAX package's "
+             "(m)", row["t_err_after"],
+             max(SLICE_I_T_SHARE * t_before, 1.25 * jax_t))
+        gate("I", f"{n} shards against 1, poses (m and rad)",
+             max(tr.max(), rot.max()), SLICE_I_POSE_TOL)
+    r8 = rows[-1]
+    s_cost = float(ba_solve(
+        *(torch.as_tensor(getattr(prob, k), device=dev) for k in (
+            "kf_poses", "kf_fixed", "lm_pos", "obs_kf", "obs_lm", "obs_px",
+            "obs_cam", "obs_valid")), params, robust_th=th,
+        iters=iters)[3])
+    gate("I", "8-shard cost against the single-card ba_solve's",
+         r8["cost"], SLICE_I_COST_SHARE * s_cost)
+    _, cprob, cparams, _ = realistic_window_problem(**kw, device="cpu")
+    cpu_poses, _, cpu_cost = dist_ba.distributed_ba_solve(
+        8, cprob, cparams, robust_th=th, iters=iters, device="cpu")
+    rot, tr = lie_np.pose_distance(solved[8].astype(np.float64),
+                                   cpu_poses.astype(np.float64))
+    gate("I", "8 shards, card against CPU, poses (m and rad)",
+         max(tr.max(), rot.max()), SLICE_I_POSE_TOL)
+    res["window64"] = dict(
+        t_err_before=t_before, jax_t_err_after=jax_t,
+        jax_cost=JAX_SLICE_I["window64_cost"], ba_solve_cost=s_cost,
+        cpu_cost=cpu_cost, card_vs_cpu_m=float(tr.max()),
+        card_vs_cpu_rad=float(rot.max()), rows=rows)
+    if torch.cuda.device_count() >= 2:
+        with tempfile.TemporaryDirectory() as tmp:
+            nccl = worker.run_ranks(cprob, cparams, tmp, 2, 8, iters=iters,
+                                    robust_th=th, timeout=600)
+        rot, tr = lie_np.pose_distance(nccl[0].astype(np.float64),
+                                       solved[8].astype(np.float64))
+        gate("I", "8 shards as 2 NCCL ranks against in-process (m, rad)",
+             max(tr.max(), rot.max()), SLICE_I_POSE_TOL)
+        res["nccl"] = dict(ranks=2, shards=8, cost=nccl[2],
+                           vs_in_process_m=float(tr.max()),
+                           vs_in_process_rad=float(rot.max()))
+        print(f"[I] nccl: 8 shards over 2 ranks: {json.dumps(res['nccl'])}",
+              flush=True)
+    else:
+        res["nccl"] = "skipped, 1 device"
+        print("[I] nccl: skipped, 1 device", flush=True)
+    res["wall_s"] = time.perf_counter() - t0
+    res["scorer_launches"] = hamming.match_scores_bits.launches
+    if res["scorer_launches"]:
+        fail(f"slice I: {res['scorer_launches']} scorer launches")
+    d8 = res["dryrun"]["timed"]
+    print(f"[slice I] 64-KF window, {r8['obs']} observations, {iters} "
+          f"iterations: mean |t| error {t_before:.6f} -> "
+          f"{r8['t_err_after']:.6f} m at 8 shards (gate {SLICE_I_T_SHARE} "
+          f"x; JAX package {jax_t}), cost {r8['cost']} (single-card "
+          f"ba_solve {s_cost}; CPU {cpu_cost}); 8 shards, card against "
+          f"CPU: {res['window64']['card_vs_cpu_m']:.3g} m, "
+          f"{res['window64']['card_vs_cpu_rad']:.3g} rad; ms per LM "
+          f"iteration by "
+          f"shards { {r['shards']: round(r['ms_per_iter'], 4) for r in rows} }"
+          f", kernels per iteration "
+          f"{ {r['shards']: r['kernels_per_iter'] for r in rows} } "
+          f"taking "
+          f"{ {r['shards']: round(r['device_ms_per_iter'], 4) for r in rows} }"
+          f" ms on the device; bound "
+          f"{r8['bound_ms']:.6f} ms ({r8['bound_by']}; the dense S_corr "
+          f"einsum alone {r8['dense_bound_ms']:.4f} ms); 28-KF dryrun "
+          f"window at 8 shards {d8['ms_per_iter']:.4f} ms per iteration "
+          f"against {d8['bound_ms']:.6f} ms (dense einsum "
+          f"{d8['dense_bound_ms']:.4f}); a cross-process reduction carries "
+          f"{r8['reduction_bytes_per_iter']} B per iteration "
+          f"({d8['reduction_bytes_per_iter']} B at 28 KFs); slice I took "
+          f"{res['wall_s']:.1f} s", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------- #
 # phase entry: the fb-KLT flagship call
 # ---------------------------------------------------------------------- #
 
 def kernel_launches_per_call(fn, calls: int = 1):
     """CUDA kernels per call of ``fn``, from a torch.profiler trace: the
-    device's kernel events, and the ``cudaLaunchKernel`` runtime calls."""
+    device's kernel events, the ``cudaLaunchKernel`` runtime calls, and
+    the kernels' summed device time (ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1462,13 +1713,75 @@ def kernel_launches_per_call(fn, calls: int = 1):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
-    kernels = sum(1 for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not kernels:
-        kernels = sum(len(e.kernels) for e in events)
+    dev_us = [e.time_range.elapsed_us() for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev_us:
+        dev_us = [k.duration for e in events for k in e.kernels]
     api = sum(e.count for e in prof.key_averages()
               if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
-    return kernels / calls, api / calls
+    return len(dev_us) / calls, api / calls, 1e-3 * sum(dev_us) / calls
+
+
+# an estimate, not a measurement: the cycles one Gauss-Newton step of one
+# keypoint takes on an SM, the steps of a keypoint being sequential,
+# summed from guessed latencies of the window's bilinear samples from
+# shared memory at the step's flow (~30), the products (~10), a cross-lane
+# sum of two values over 81 pixels (5 shuffle levels, ~25 each) and the
+# 2x2 update with its convergence test (~35)
+KLT_CHAIN_CYCLES = 200
+
+
+def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
+                 margin: int = 5):
+    """The least time of one ``fb_klt_track`` call (``entry()``'s): 4
+    forward levels and the backward base level, ``iters`` steps each.
+
+    - f32 operations per keypoint and level pass: the (win+2)² template
+      and (win+2·margin)² search patches sampled bilinearly (8 a pixel),
+      the gradients and the 2x2 gradient matrix (10 a window pixel); per
+      step the window resampled (8), the difference (1) and the two sums
+      (4) over win² pixels, and the 12 of the step;
+    - bytes: the pixels the patches touch (each patch's footprint one
+      pixel wider for the bilinear taps, the union over keypoints, the
+      patches placed at the keypoints), 4 B each, read once; keypoints
+      and priors in, positions and status out;
+    - an estimate of the dependent chain: a keypoint's steps are
+      sequential, so a one-kernel KLT takes level passes x iters x the
+      cycles of one step at the SM clock, with ``KLT_CHAIN_CYCLES`` (an
+      estimate, not measured) for those cycles.
+    Returns ops, bytes, bound_ms (the larger of the first two, over the
+    f32 and HBM rates), bound_by and chain_estimate_ms."""
+    import numpy as np
+
+    kps = np.asarray(kps, np.float64)
+    n, r = len(kps), win // 2
+    T, S = win + 2, win + 2 * margin
+    touched = {}
+
+    def mark(img, lvl, top_left, P):
+        H, W = shapes[lvl]
+        m = touched.setdefault((img, lvl), np.zeros((H, W), bool))
+        for x, y in np.floor(top_left).astype(int):
+            m[max(y, 0):max(y + P + 1, 0), max(x, 0):max(x + P + 1, 0)] = \
+                True
+
+    for lvl in range(len(shapes)):
+        k = kps / 2.0 ** lvl
+        mark("prev", lvl, k - (r + 1), T)
+        mark("cur", lvl, k - r - margin, S)
+    mark("cur", 0, kps - (r + 1), T)        # the backward pass
+    mark("prev", 0, kps - r - margin, S)
+    passes = len(shapes) + 1
+    px = int(sum(int(m.sum()) for m in touched.values()))
+    nbytes = 4 * px + n * (8 + 8 + 1) + n * (8 + 1)
+    ops = n * passes * (T * T * 8 + win * win * 10 + S * S * 8
+                        + iters * (win * win * 13 + 12))
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=ops, bytes=nbytes, pixels_read=px,
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                chain_estimate_ms=1e3 * passes * iters * KLT_CHAIN_CYCLES
+                / SM_CLOCK_HZ)
 
 
 def phase_entry(dev):
@@ -1481,8 +1794,10 @@ def phase_entry(dev):
     from ov2slam_torch.ops.klt import klt_track
 
     fn, args = entry()
+    bound = fb_klt_bound(args[2].cpu().numpy(),
+                         [tuple(p.shape) for p in args[0]])
     ms = time_cuda(lambda: fn(*args), 20)
-    kernels, api = kernel_launches_per_call(lambda: fn(*args))
+    kernels, api, dev_ms = kernel_launches_per_call(lambda: fn(*args))
     gpx, gst = (a.cpu().numpy() for a in fn(*args))
     cfn, cargs = entry(device="cpu")
     cpx, cst = (a.numpy() for a in cfn(*cargs))
@@ -1496,12 +1811,13 @@ def phase_entry(dev):
     cf = klt_track(*cargs, win=9, iters=30)[0].numpy()
     fwd_differ = float((np.abs(gf - cf).max(1) > 1e-2).mean())
     res = dict(ms_per_call=ms, kernels_per_call=kernels,
-               cuda_launch_calls_per_call=api, keypoints=len(gst),
+               cuda_launch_calls_per_call=api, device_ms_per_call=dev_ms,
+               keypoints=len(gst),
                tracked_card=int(gst.sum()), tracked_cpu=int(cst.sum()),
                status_equal_share=same_status, both_tracked=int(both.sum()),
                max_pos_err_both_tracked=pos_err,
                status_differ_share=1.0 - same_status,
-               forward_pos_differ_share=fwd_differ)
+               forward_pos_differ_share=fwd_differ, **bound)
     print("[entry] " + json.dumps(res), flush=True)
     gate("entry", "status differ share", 1.0 - same_status, 0.01)
     gate("entry", "position error where both track (px)", pos_err, 1e-2)
@@ -1604,6 +1920,8 @@ def main() -> int:
     for part in ("kitti", "tartanair"):
         h[part] = run_slice_h(part, dev)
         gate_slice_h(h[part])
+    i = run_slice_i(dev)
+    i8 = i["window64"]["rows"][-1]
 
     # each path's figures are at its last main-path query; the record's
     # top-level ones are slice B's, its launches those of all four
@@ -1653,7 +1971,22 @@ def main() -> int:
              voxels=g["voxels"]),
         dict(name="entry_fb_klt", source="ov2slam_torch/entry.py",
              ms=ent["ms_per_call"], kernels_per_call=ent["kernels_per_call"],
-             cuda_launch_calls_per_call=ent["cuda_launch_calls_per_call"])]}
+             cuda_launch_calls_per_call=ent["cuda_launch_calls_per_call"],
+             device_ms=ent["device_ms_per_call"], bound_ms=ent["bound_ms"],
+             bound_by=ent["bound_by"],
+             chain_estimate_ms=ent["chain_estimate_ms"]),
+        dict(name="dist_ba_iteration",
+             source="ov2slam_torch/parallel/dist_ba.py",
+             ms=i8["ms_per_iter"], calls=sum(
+                 r["iters"] for r in i["window64"]["rows"]),
+             kernels_per_call=i8["kernels_per_iter"],
+             cuda_launch_calls_per_call=i8["cuda_launch_calls_per_iter"],
+             device_ms=i8["device_ms_per_iter"],
+             bound_ms=i8["bound_ms"], bound_by=i8["bound_by"],
+             dense_einsum_bound_ms=i8["dense_bound_ms"], shards=8,
+             keyframes=i8["keyframes"], obs=i8["obs"],
+             dryrun_ms=i["dryrun"]["timed"]["ms_per_iter"],
+             dryrun_bound_ms=i["dryrun"]["timed"]["bound_ms"])]}
     print(json.dumps(plain), flush=True)
     print(f"[chip_smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

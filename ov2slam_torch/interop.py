@@ -1,9 +1,10 @@
 """Carry state from numpy arrays into the port's objects.
 
 Takes another implementation's state — as numpy arrays, e.g. read off the
-JAX package's ``MapStore``, ``PlaceIndex``, ``Camera`` and ``TsdfVolume`` —
-and builds the port's objects on a given device, so the same map, index,
-camera and volume can be stepped on both sides. Imports numpy and torch
+JAX package's ``MapStore``, ``PlaceIndex``, ``Camera``, ``TsdfVolume``,
+``BAParams`` and ``BAProblem`` — and builds the port's objects on a given
+device, so the same map, index, camera, volume and bundle-adjustment
+problem can be stepped on both sides. Imports numpy and torch
 only. (A map's state also travels through the checkpoint ``.npz``, whose
 format both packages share.)
 """
@@ -11,6 +12,7 @@ format both packages share.)
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -19,8 +21,9 @@ import torch
 from .core.camera import Camera
 from .device import resolve_device
 from .loopclosure.index import PlaceIndex
-from .mapping.store import MapStore
+from .mapping.store import BAProblem, MapStore
 from .mapping.tsdf import TsdfVolume
+from .solvers.ba import BAParams
 from .utils.config import SlamConfig
 
 
@@ -105,3 +108,27 @@ def tsdf_volume(state: Mapping[str, object], device=None) -> TsdfVolume:
     vol.color = None if color is None else t(color, (V, 3))
     vol.n_integrated = int(state.get("n_integrated", 0))
     return vol
+
+
+def ba_params(fx, fy, cx, cy, T_rl, device=None) -> BAParams:
+    """The solvers' calibration from the fields of another package's
+    ``BAParams``: the four intrinsics (scalars) and ``T_rl`` (7,), the
+    left camera's pose in the right camera's frame."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    intr = tuple(float(np.asarray(x)) for x in (fx, fy, cx, cy))
+    return BAParams(fx=t(fx), fy=t(fy), cx=t(cx), cy=t(cy), T_rl=t(T_rl),
+                    intr=intr)
+
+
+def ba_problem(state: Mapping[str, object]) -> BAProblem:
+    """A ``BAProblem`` holding copies of ``state``'s arrays, a mapping of
+    its field names (e.g. ``dataclasses.asdict`` of another package's
+    problem); a field ``state`` lacks or holds as None keeps its
+    default."""
+    names = {f.name for f in dataclasses.fields(BAProblem)}
+    return BAProblem(**{k: np.array(v) for k, v in state.items()
+                        if k in names and v is not None})

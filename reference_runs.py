@@ -17,7 +17,10 @@ counterpart. Slice G fuses the CARLA rig's 180 RGB-D frames into the TSDF
 volume and prints ``chip_smoke.slice_g_figures``; slice H writes the
 KITTI- and TartanAir-layout directories and runs the root ``run_slam.py``
 over them in-process (``--port``: ``python -m ov2slam_torch.run_slam``).
-Slice P is test_pipeline.py::
+Slice I solves chip_smoke's three distributed-BA problems (the JAX
+dryrun's two 28-keyframe windows and the 64-keyframe one) with 8 shards:
+the JAX package on 8 virtual CPU devices, the port with 8 in-process
+shards. Slice P is test_pipeline.py::
 test_async_paced_arrival_bench_conditions on the port on the CPU, with
 the front end's wait and map lock as ``--rule`` says (once per
 ``--seeds`` value: the runs differ by timing only); with ``--port`` and
@@ -34,6 +37,8 @@ ones. A seed given twice shows whether two runs agree to the last bit.
     JAX_PLATFORMS=cpu python reference_runs.py C D
     JAX_PLATFORMS=cpu python reference_runs.py E
     JAX_PLATFORMS=cpu python reference_runs.py G H
+    JAX_PLATFORMS=cpu python reference_runs.py I
+    python3 reference_runs.py --port --device cuda I
     python reference_runs.py --port P --rule jax-wait --seeds 1 2 3
     python3 reference_runs.py --port --device cuda --rule jax-wait E F
     JAX_PLATFORMS=cpu python reference_runs.py A --seeds 1 2 3
@@ -47,6 +52,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import sys
 import time
 
@@ -161,6 +167,58 @@ def run_h(part, args):
                 package="ov2slam_torch" if args.port else "ov2slam_tpu",
                 backend=args.device if args.port else "cpu", **report,
                 resets=resets, files=files, run_s=wall)
+
+
+def run_i(args):
+    """Slice I: the distributed Schur BA over ``chip_smoke``'s three
+    problems (the JAX dryrun's two 28-KF windows, 3 LM iterations, and the
+    64-KF window, 5) with 8 shards: the JAX package's
+    ``distributed_ba_solve`` on 8 virtual CPU devices, or with ``--port``
+    the port's with 8 in-process shards on ``--device``. Yields, per
+    problem, the mean |t| error before and after and the cost."""
+    import chip_smoke
+    from ov2slam_torch.entry import mean_t_err
+
+    if args.port:
+        from ov2slam_torch.parallel import dist_ba, problems
+        mesh, package = 8, "ov2slam_torch"
+
+        def build(kw):
+            return problems.realistic_window_problem(**kw,
+                                                     device=args.device)
+
+        def solve(prob, params, iters):
+            return dist_ba.distributed_ba_solve(
+                mesh, prob, params, robust_th=chip_smoke.SLICE_I_ROBUST_TH,
+                iters=iters, device=args.device)
+    else:
+        import jax
+
+        from ov2slam_tpu.parallel import dist_ba, problems
+        if len(jax.devices()) < 8:
+            raise SystemExit("reference_runs: slice I needs 8 devices")
+        mesh, package = dist_ba.make_mesh(jax.devices()[:8]), "ov2slam_tpu"
+
+        def build(kw):
+            return problems.realistic_window_problem(**kw)
+
+        def solve(prob, params, iters):
+            return dist_ba.distributed_ba_solve(
+                mesh, prob, params, robust_th=chip_smoke.SLICE_I_ROBUST_TH,
+                iters=iters)
+
+    for name, kw, iters in chip_smoke.SLICE_I_PROBLEMS:
+        _, prob, params, gt = build(kw)
+        t0 = time.perf_counter()
+        poses, _, cost = solve(prob, params, iters)
+        wall = time.perf_counter() - t0
+        yield dict(slice="I", problem=name, package=package,
+                   backend=args.device if args.port else "cpu", shards=8,
+                   keyframes=len(prob.kf_ids),
+                   obs=int(prob.obs_valid.sum()), iters=iters,
+                   t_err_before=mean_t_err(prob.kf_poses, prob, gt),
+                   t_err_after=mean_t_err(poses, prob, gt),
+                   cost=cost, wall_s=wall)
 
 
 def paced_manager(rule: str):
@@ -282,6 +340,12 @@ def main(argv) -> int:
                                                 seed=s)
         package, backend = "ov2slam_torch", args.device
     else:
+        # slice I shards over 8 virtual CPU devices; the flag must be set
+        # before JAX starts its backend
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                flags + " --xla_force_host_platform_device_count=8").strip()
         import jax
 
         jax.config.update("jax_platforms", "cpu")
@@ -320,6 +384,10 @@ def main(argv) -> int:
             continue
         if name == "G":
             print(json.dumps(run_g(args)), flush=True)
+            continue
+        if name == "I":
+            for r in run_i(args):
+                print(json.dumps(r), flush=True)
             continue
         if name == "H":
             for part in ("kitti", "tartanair"):
