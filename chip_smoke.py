@@ -74,7 +74,16 @@ Phases (any failure exits non-zero):
      iteration, the padding and work efficiency of each sharding, the
      bytes a cross-process reduction carries per iteration and the bound;
      with two or more cards, the 8-shard solve again as 2 NCCL ranks (else
-     "[I] nccl: skipped, 1 device").
+     "[I] nccl: skipped, 1 device");
+ 14. bench: ``ov2slam_torch.bench.main`` with all ten stages at their
+     widths, ``--frames 40`` for the e2e stages and fewer timed
+     repetitions of the front-end step and of full_ba_pcg, then
+     ``ov2slam_torch.protocol_bench.main(["--smoke"])`` (records under
+     build/). Gates: both exit 0; no stage or run has an error or worker
+     errors; every value finite; the device named is the card;
+     ``full_ba_pcg`` took the PCG branch in each of its LM iterations; the
+     scorer launched in ``lc_query`` (at (1024, 300, 300)) and in
+     ``e2e_loop``. It prints the bench's line and the phase's seconds.
 For E and F it also prints the synchronizing CUDA calls that
 ``torch.cuda.set_sync_debug_mode("warn")`` reports on the front end's
 thread during 10 chained dispatches, and the worker stream's handle beside
@@ -82,7 +91,9 @@ the (thread, stream) of every scorer launch.
 Then the scorer at each slice's main-path shapes (for A and B the
 populated prefix of the index, every M it took; for C, D, E and H every
 (M, N, Nq) the slice launched, on the loop-closure and the relocalizer
-path) against its plain versions and timed at the last, one JSON line of
+path; the bench's, its lc_query store and every shape e2e_loop launched,
+are held in its phase) against its plain versions and timed at the last,
+one JSON line of
 the plain-torch work with a bound (TSDF integration, the ESDF sweep,
 entry()'s fb-KLT with an estimate of its dependent chain, an LM iteration
 of the distributed BA), one JSON line of kernel records, the card's name and
@@ -96,19 +107,17 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
-HERE = os.path.dirname(os.path.abspath(__file__))
+# the H100's published peaks and the bounds held against them (see
+# ov2slam_torch/roofline.py); run alone, without the package beside it,
+# this import fails and the script exits non-zero
+from ov2slam_torch.roofline import (  # noqa: F401
+    F32_FLOP_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, KLT_CHAIN_CYCLES,
+    SM_CLOCK_HZ, fb_klt_bound, nvidia_smi_line, reduction_bytes)
 
-# H100 SXM published peaks (dense): HBM rate, int8 tensor-core rate, f32
-# outside the tensor cores (the solvers run with TF32 off), and the SM
-# clock at the 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_FLOP_PER_S = 67e12
-SM_CLOCK_HZ = 1.98e9
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 # slice B gate: max(0.09 m, 1.25 x the JAX package's ATE on the same
 # sequence and config, measured on the CPU by reference_runs.py)
@@ -187,6 +196,18 @@ SLICE_I_COST_SHARE = 1.05
 SLICE_I_POSE_TOL = 5e-4
 JAX_SLICE_I = dict(window64_t_err_after=0.0028474562114035947,
                    window64_cost=8571.26171875)
+# the [bench] phase: ov2slam_torch.bench's ten stages at their widths, then
+# protocol_bench --smoke; the scorer is held at the lc_query stage's store.
+# Its depth is cut so that the script stays well inside its time limit
+# (with 60 e2e frames and the bench's own repetitions it took 1025.5 s and
+# 1106.5 s on the card): 40 frames for the e2e stages (the bench's default
+# is 120), the front-end step timed in one window of 30 steps after a warm
+# one (the bench: 3 windows of 120 after one), full_ba_pcg timed once
+# (the bench: twice)
+BENCH_FRAMES = 40
+BENCH_DEPTH = dict(FRONTEND=dict(steps=30, windows=1),
+                   FULL_BA_PCG=dict(reps=1))
+BENCH_LC_SHAPE = (1024, 300, 300)
 RESULT_FILES = ("ov2slam_traj.txt", "ov2slam_kfs_traj.txt",
                 "ov2slam_traj_kitti.txt", "ov2slam_fullba_kfs_traj.txt",
                 "ov2slam_full_traj_wlc.txt", "ov2slam_full_traj_wlc_opt.txt")
@@ -435,16 +456,6 @@ def slice_outcome(name: str, slam, seq, trace, ate_rmse, lie_np,
             res["fullba_ate_m"] = ate_rmse(est, seq.gt_poses[idx],
                                            align_scale=not seq.stereo)
     return res
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_cuda(fn, runs: int):
@@ -774,6 +785,8 @@ def paced_arrival(slam, frames, n_warm=SLICE_F_WARM, pace_share=0.75):
     (frames dropped, pace fps, flat-out median seconds per frame)."""
     import numpy as np
 
+    from ov2slam_torch.bench import paced_replay
+
     walls = []
     for left, right, t in frames[:n_warm]:
         t0 = time.perf_counter()
@@ -783,24 +796,11 @@ def paced_arrival(slam, frames, n_warm=SLICE_F_WARM, pace_share=0.75):
     pace_fps = pace_share / max(med, 1e-6)
     interval = 1.0 / pace_fps
     slam.cfg.backpressure_wait_s = 2.0 * interval
-    n_dropped = 0
-    t_all0 = time.perf_counter()
-    i = n_warm
-    while i < len(frames):
-        t_sched = t_all0 + (i - n_warm) * interval
-        now = time.perf_counter()
-        if now < t_sched:
-            time.sleep(t_sched - now)
-        elif now > t_sched + interval and i < len(frames) - 1:
-            n_behind = min(int((now - t_sched) / interval),
-                           len(frames) - 1 - i)
-            i += n_behind
-            n_dropped += n_behind
-        left, right, t = frames[i]
-        slam.process_frame(left, right, t)
-        i += 1
+    # this module's clock, looked up now: trace_slice.py replaces it
+    arr = paced_replay(frames, lambda f: slam.process_frame(*f), n_warm,
+                       pace_fps, clock=time.perf_counter, sleep=time.sleep)
     slam.flush()
-    return n_dropped, pace_fps, med
+    return arr.n_dropped, pace_fps, med
 
 
 class DispatchSyncCounter:
@@ -1525,12 +1525,6 @@ def dist_ba_work(prob, shard_np, iters: int):
                 window_landmarks=n_lm, lm_pose_pairs=int(len(pairs)))
 
 
-def reduction_bytes(Kw: int) -> int:
-    """Bytes one LM iteration all-reduces across processes: Hpp, bp,
-    S_corr, b_corr and the two costs, summed in f64."""
-    return 8 * (Kw * 36 + Kw * 6 + Kw * Kw * 36 + Kw * 6 + 2)
-
-
 def sharded_solve_figures(prob, params, gt, n: int, iters: int, dev):
     """The 64-KF (or any) window solved with ``n`` in-process shards
     through ``distributed_ba_solve``, and its step timed: ms per LM
@@ -1722,68 +1716,6 @@ def kernel_launches_per_call(fn, calls: int = 1):
     return len(dev_us) / calls, api / calls, 1e-3 * sum(dev_us) / calls
 
 
-# an estimate, not a measurement: the cycles one Gauss-Newton step of one
-# keypoint takes on an SM, the steps of a keypoint being sequential,
-# summed from guessed latencies of the window's bilinear samples from
-# shared memory at the step's flow (~30), the products (~10), a cross-lane
-# sum of two values over 81 pixels (5 shuffle levels, ~25 each) and the
-# 2x2 update with its convergence test (~35)
-KLT_CHAIN_CYCLES = 200
-
-
-def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
-                 margin: int = 5):
-    """The least time of one ``fb_klt_track`` call (``entry()``'s): 4
-    forward levels and the backward base level, ``iters`` steps each.
-
-    - f32 operations per keypoint and level pass: the (win+2)² template
-      and (win+2·margin)² search patches sampled bilinearly (8 a pixel),
-      the gradients and the 2x2 gradient matrix (10 a window pixel); per
-      step the window resampled (8), the difference (1) and the two sums
-      (4) over win² pixels, and the 12 of the step;
-    - bytes: the pixels the patches touch (each patch's footprint one
-      pixel wider for the bilinear taps, the union over keypoints, the
-      patches placed at the keypoints), 4 B each, read once; keypoints
-      and priors in, positions and status out;
-    - an estimate of the dependent chain: a keypoint's steps are
-      sequential, so a one-kernel KLT takes level passes x iters x the
-      cycles of one step at the SM clock, with ``KLT_CHAIN_CYCLES`` (an
-      estimate, not measured) for those cycles.
-    Returns ops, bytes, bound_ms (the larger of the first two, over the
-    f32 and HBM rates), bound_by and chain_estimate_ms."""
-    import numpy as np
-
-    kps = np.asarray(kps, np.float64)
-    n, r = len(kps), win // 2
-    T, S = win + 2, win + 2 * margin
-    touched = {}
-
-    def mark(img, lvl, top_left, P):
-        H, W = shapes[lvl]
-        m = touched.setdefault((img, lvl), np.zeros((H, W), bool))
-        for x, y in np.floor(top_left).astype(int):
-            m[max(y, 0):max(y + P + 1, 0), max(x, 0):max(x + P + 1, 0)] = \
-                True
-
-    for lvl in range(len(shapes)):
-        k = kps / 2.0 ** lvl
-        mark("prev", lvl, k - (r + 1), T)
-        mark("cur", lvl, k - r - margin, S)
-    mark("cur", 0, kps - (r + 1), T)        # the backward pass
-    mark("prev", 0, kps - r - margin, S)
-    passes = len(shapes) + 1
-    px = int(sum(int(m.sum()) for m in touched.values()))
-    nbytes = 4 * px + n * (8 + 8 + 1) + n * (8 + 1)
-    ops = n * passes * (T * T * 8 + win * win * 10 + S * S * 8
-                        + iters * (win * win * 13 + 12))
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=ops, bytes=nbytes, pixels_read=px,
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                chain_estimate_ms=1e3 * passes * iters * KLT_CHAIN_CYCLES
-                / SM_CLOCK_HZ)
-
-
 def phase_entry(dev):
     """``entry()`` on the card: ms per call (CUDA events, warm, median of
     20), kernels per call, and agreement with the same call on the CPU."""
@@ -1858,6 +1790,118 @@ def launched_shapes_scorer(res, dev):
     return rows, err
 
 
+# ---------------------------------------------------------------------- #
+# phase bench: the port's benchmark entry points
+# ---------------------------------------------------------------------- #
+
+def phase_bench(dev):
+    """``ov2slam_torch.bench.main`` over all ten stages (``--frames``
+    ``BENCH_FRAMES``, the repetitions of ``BENCH_DEPTH``) and
+    ``protocol_bench.main(["--smoke"])``, with their
+    gates (see the module docstring); then the scorer held against both
+    plain versions at the lc_query stage's store and at every shape the
+    e2e_loop stage launched. Returns the bench's line, the scorer's
+    launches in the bench, the scorer rows and their largest difference."""
+    import torch
+
+    from ov2slam_torch import bench, protocol_bench
+    from ov2slam_torch.ops import hamming
+
+    t0 = time.perf_counter()
+    # counts cover exactly the bench's run of its stages
+    hamming.match_scores_bits.launches = 0
+    hamming.match_scores_bits.shapes.clear()
+    hamming.match_scores_bits_plain.cuda_runs = 0
+    hamming.match_scores_plain.cuda_runs = 0
+    detail = {}
+    saved = {k: dict(getattr(bench, k)) for k in BENCH_DEPTH}
+    try:
+        for k, v in BENCH_DEPTH.items():
+            getattr(bench, k).update(v)
+        rc = bench.main(["--frames", str(BENCH_FRAMES)], detail=detail)
+    finally:
+        for k, v in saved.items():
+            getattr(bench, k).update(v)
+    launches = hamming.match_scores_bits.launches
+    plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
+                  + hamming.match_scores_plain.cuda_runs)
+    t_bench = time.perf_counter() - t0
+    line, stages = detail["line"], detail["stages"]
+    print("[bench] " + json.dumps(line), flush=True)
+    if rc != 0:
+        fail(f"bench: exit code {rc}, failed stages {detail['failed']}")
+    if tuple(stages) != bench.STAGES:
+        fail(f"bench: stages {list(stages)}")
+    bad = bench.nonfinite(stages)
+    if bad:
+        fail(f"bench: values not finite at {bad}")
+    want = dict(name=torch.cuda.get_device_name(0),
+                count=torch.cuda.device_count())
+    if not (isinstance(line["device"], dict) and all(
+            line["device"][k] == v for k, v in want.items())):
+        fail(f"bench: device {line['device']}, not the card {want}")
+    pcg = stages["full_ba_pcg"]
+    n_iters = (bench.FULL_BA_PCG["iters_robust"]
+               + bench.FULL_BA_PCG["iters_l2"])
+    if pcg["branch"] != "pcg" or pcg["pcg_steps"] != n_iters:
+        fail(f"bench: full_ba_pcg took {pcg['pcg_steps']} PCG steps of "
+             f"{n_iters} ({pcg['branch']})")
+    for name in ("lc_query", "e2e_loop"):
+        if stages[name]["scorer_launches"] < 1:
+            fail(f"bench: the scorer never launched in {name}")
+    if [s[:3] for s in stages["lc_query"]["scorer_shapes"]] != [
+            list(BENCH_LC_SHAPE)]:
+        fail(f"bench: lc_query scored {stages['lc_query']['scorer_shapes']}")
+    if plain_cuda:
+        fail("bench: the plain scorer ran on cuda")
+    for name in ("e2e_async", "e2e_async20", "e2e_async40"):
+        if stages[name].get("n_worker_errors") != 0:
+            fail(f"bench: {name} had worker errors")
+
+    t1 = time.perf_counter()
+    out = os.path.join(HERE, "build", "protocol_smoke.jsonl")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if os.path.exists(out):
+        os.remove(out)
+    prc = protocol_bench.main(["--smoke", "--out", out])
+    with open(out) as f:
+        recs = [json.loads(x) for x in f]
+    for r in recs:
+        print("[bench] protocol_bench --smoke: " + json.dumps(r), flush=True)
+    if prc != 0 or [r["mode"] for r in recs] != ["throughput", "online"]:
+        fail(f"protocol_bench --smoke: exit code {prc}, {len(recs)} records")
+    for r in recs:
+        if "error" in r or r["n_worker_errors"] or r["device"] != \
+                line["device"] or bench.nonfinite(r):
+            fail(f"protocol_bench --smoke: {r['mode']} run failed")
+    t_protocol = time.perf_counter() - t1
+
+    # the scorer at the bench's store, and at every shape e2e_loop launched
+    M, N, Nq = BENCH_LC_SHAPE
+    args = scorer_inputs(M, N, Nq, seed=M + N + Nq, dev=dev, p_valid=1.0)
+    err = 0.0
+    for b in (0, 48, 127, 256):
+        err = max(err, scorer_equal(f"bench lc_query M={M}", args, b)[1])
+    row = time_scorer(args)
+    print(f"[kernels] hamming_score bench lc_query M={M} N={N} Nq={Nq} "
+          f"equal to both plain versions (atol 0): {describe(row)}",
+          flush=True)
+    rows = [dict(slice="bench", path="lc_query (PlaceIndex, 1024 KFs)",
+                 launches=stages["lc_query"]["scorer_launches"], **row,
+                 index_cube_bytes=M * N * 256)]
+    more, e = launched_shapes_scorer(dict(
+        slice="bench e2e_loop", scorer_shapes=stages["e2e_loop"][
+            "scorer_shapes"], index_cube_bytes=None), dev)
+    rows += more
+    err = max(err, e)
+    secs = time.perf_counter() - t0
+    print(f"[bench] phase passed in {secs:.1f} s (bench {t_bench:.1f} s, "
+          f"protocol smoke {t_protocol:.1f} s); line {len(json.dumps(line))}"
+          f" bytes; scorer launches {launches}", flush=True)
+    return dict(line=line, launches=launches, rows=rows, err=err,
+                seconds=secs, protocol=recs)
+
+
 def main() -> int:
     import torch
 
@@ -1865,12 +1909,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this check needs a GPU",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "ov2slam_torch")):
-        print("chip_smoke: run from a checkout of the repository "
-              "(ov2slam_torch/ not found beside this script)",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, HERE)
     from ov2slam_torch import kernels
     from ov2slam_torch.device import resolve_device
 
@@ -1922,6 +1960,8 @@ def main() -> int:
         gate_slice_h(h[part])
     i = run_slice_i(dev)
     i8 = i["window64"]["rows"][-1]
+    bn = phase_bench(dev)
+    max_err = max(max_err, bn["err"])
 
     # each path's figures are at its last main-path query; the record's
     # top-level ones are slice B's, its launches those of all four
@@ -1946,6 +1986,7 @@ def main() -> int:
                 row.update(thread_streams=e["scorer_origins"],
                            worker_stream=e["worker_stream"])
         paths += more
+    paths += bn["rows"]
     top = {k: paths[0][k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")}
     kernels_line = {"kernels": [dict(
@@ -1953,7 +1994,8 @@ def main() -> int:
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
         launches=sum(r["scorer_launches"] for r in (a, b, c, d, e, f,
-                                                    *h.values())),
+                                                    *h.values()))
+        + bn["launches"],
         max_abs_err=max_err, library_ms=None, **top, paths=paths,
         phase3=rows, index_compaction=compaction)]}
     # plain-torch work on the main paths, with its bound: candidates for

@@ -5,12 +5,14 @@ starts ``world_size`` processes of this module with ``sys.executable``,
 each of which joins a ``torch.distributed`` group through a ``file://``
 rendezvous, solves its rows of the shard axis with
 ``dist_ba.distributed_ba_solve`` and, on rank 0, writes the result to
-another ``.npz``. Every process is waited for with a timeout and killed
-past it. Imports numpy, torch and this package only.
+another ``.npz``. ``time_all_reduce`` starts ranks that time an
+``all_reduce`` of a payload of f64 sums instead (``--all-reduce-bytes``;
+the problem file is then not read). Every process is waited for with a
+timeout and killed past it. Imports numpy, torch and this package only.
 
     python -m ov2slam_torch.parallel.worker PROBLEM.npz OUT.npz \\
         --init-method file:///tmp/pg --rank 0 --world-size 2 \\
-        --n-shards 8 --iters 5 [--device cpu]
+        --n-shards 8 --iters 5 [--device cpu] [--all-reduce-bytes N]
 
 Each rank runs on the GPU (``cuda:rank`` modulo the card count, over
 NCCL) unless ``--device cpu`` is given (gloo).
@@ -62,6 +64,8 @@ def main(argv=None) -> int:
     ap.add_argument("--n-shards", type=int, required=True)
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--robust-th", type=float, default=5.9915)
+    ap.add_argument("--all-reduce-bytes", type=int, default=0,
+                    help="time an all_reduce of this many bytes instead")
     args = ap.parse_args(argv)
 
     import torch
@@ -77,6 +81,11 @@ def main(argv=None) -> int:
         torch.cuda.set_device(device)
     init_multihost(args.init_method, args.world_size, args.rank, device)
     try:
+        if args.all_reduce_bytes:
+            ms = _time_all_reduce(args.all_reduce_bytes, device)
+            if args.rank == 0:
+                np.savez(args.out, ms=ms)
+            return 0
         prob, params = load_problem(args.problem, device)
         mesh = make_mesh(args.n_shards, group=dist.group.WORLD)
         poses, lm, cost = distributed_ba_solve(
@@ -87,6 +96,31 @@ def main(argv=None) -> int:
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def _time_all_reduce(n_bytes: int, device, runs: int = 20) -> float:
+    """Median ms of one ``all_reduce`` over the default group of
+    ``n_bytes`` of f64 on ``device`` (each timed run ends with a
+    synchronize, after a warm-up)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from ..device import synchronize
+
+    buf = torch.zeros(max(1, n_bytes // 8), dtype=torch.float64,
+                      device=device)
+    dist.all_reduce(buf)
+    synchronize(device)
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf)
+        synchronize(device)
+        times.append(time.perf_counter() - t0)
+    return 1e3 * sorted(times)[len(times) // 2]
 
 
 def run_ranks(prob, params, tmp_dir: str, world_size: int, n_shards: int,
@@ -101,10 +135,37 @@ def run_ranks(prob, params, tmp_dir: str, world_size: int, n_shards: int,
     the processes' environment."""
     from ..device import resolve_device
 
-    dev_type = resolve_device(device).type
+    dev_type = resolve_device(device).type     # raises before any I/O
     problem = os.path.join(tmp_dir, "problem.npz")
-    out = os.path.join(tmp_dir, "result.npz")
     save_problem(problem, prob, params)
+    out = _launch(tmp_dir, world_size, dev_type, timeout, env, problem,
+                  ["--n-shards", str(n_shards), "--iters", str(iters),
+                   "--robust-th", str(robust_th)])
+    with np.load(out) as z:
+        return z["poses"], z["lm_pos"], float(z["cost"])
+
+
+def time_all_reduce(n_bytes: int, tmp_dir: str, world_size: int,
+                    device=None, timeout: float = 120.0,
+                    env: Optional[dict] = None) -> float:
+    """Median ms of an ``all_reduce`` of ``n_bytes`` of f64 sums across
+    ``world_size`` processes of this module, one card each (``None`` =
+    the GPU, NCCL; ``"cpu"`` = gloo ranks), as rank 0 times it."""
+    from ..device import resolve_device
+
+    out = _launch(tmp_dir, world_size, resolve_device(device).type,
+                  timeout, env, "-",
+                  ["--n-shards", str(world_size),
+                   "--all-reduce-bytes", str(int(n_bytes))])
+    with np.load(out) as z:
+        return float(z["ms"])
+
+
+def _launch(tmp_dir, world_size, dev_type, timeout, env, problem, extra):
+    """Start ``world_size`` ranks of this module on ``dev_type`` with
+    ``extra`` arguments, wait for them all, and return rank 0's output
+    file; raises if a process fails or outlives ``timeout`` seconds."""
+    out = os.path.join(tmp_dir, "result.npz")
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     penv = dict(os.environ, **(env or {}))
@@ -114,9 +175,7 @@ def run_ranks(prob, params, tmp_dir: str, world_size: int, n_shards: int,
     procs = [subprocess.Popen(
         [sys.executable, "-m", "ov2slam_torch.parallel.worker", problem, out,
          "--init-method", init, "--rank", str(r), "--world-size",
-         str(world_size), "--device", dev_type,
-         "--n-shards", str(n_shards), "--iters", str(iters),
-         "--robust-th", str(robust_th)],
+         str(world_size), "--device", dev_type, *extra],
         env=penv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world_size)]
     logs, failed = [], []
@@ -140,8 +199,7 @@ def run_ranks(prob, params, tmp_dir: str, world_size: int, n_shards: int,
     if failed:
         raise RuntimeError("; ".join(failed) + "\n" + "\n".join(
             f"--- rank {r}\n{log[-4000:]}" for r, log in enumerate(logs)))
-    with np.load(out) as z:
-        return z["poses"], z["lm_pos"], float(z["cost"])
+    return out
 
 
 if __name__ == "__main__":

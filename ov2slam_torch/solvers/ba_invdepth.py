@@ -159,7 +159,10 @@ def _solve_iteration_inv_cg(T_cw, lm_rho, lam, anch_kf, obs_kf, obs_lm,
     """Matrix-free PCG step for windows above DENSE_SCHUR_MAX_KFS poses
     (poses + scalar inverse depths): every S·x product is O(obs)
     gather/segmented-sum work, and neither the (Kw, Kw, 6, 6) pose
-    Hessian nor a landmark-pose cross tensor is materialized."""
+    Hessian nor a landmark-pose cross tensor is materialized. Counts its
+    calls on ``_solve_iteration_inv_cg.calls`` (the bench checks that its
+    200-keyframe solve took this branch)."""
+    _solve_iteration_inv_cg.calls += 1
     free = free_pose[:, None] > 0
     eyeK = torch.eye(6, dtype=r.dtype, device=r.device)
 
@@ -236,6 +239,9 @@ def _solve_iteration_inv_cg(T_cw, lm_rho, lam, anch_kf, obs_kf, obs_lm,
     new_T_cw = lie.pose_left_update(T_cw, dx_pose)
     new_rho = torch.clamp(lm_rho + d_rho, min=1e-6)
     return new_T_cw, new_rho
+
+
+_solve_iteration_inv_cg.calls = 0
 
 
 def _solve_iteration_inv(T_cw, lm_rho, lam, lm_anchor, lm_ray,

@@ -136,13 +136,11 @@ class SlamConfig:
     # 3D/2D split tracking (`visual_front_end.cpp:187-271`): 3D kps with a
     # projected prior run the BASE level only; 2D kps and prior failures
     # get the full pyramid, compacted into a half-capacity batch
-    # (ops/klt.fb_klt_track_split). DEFAULT OFF: measured on TPU v5e the
-    # fused step is epipolar-RANSAC-dominated (KLT 1.9 ms of 4.9 ms), so
-    # the split's level-loop savings buy ~0 fps, while base-level-only
-    # tracking of 3D kps costs accuracy on rotation-heavy sequences
-    # (loop endpoint err 0.06 -> 0.18 m) — the reference's motivation
-    # (halving CPU level-loop work, a real win single-kp-at-a-time)
-    # doesn't transfer to batched fixed-shape dispatch.
+    # (ops/klt.fb_klt_track_split). DEFAULT OFF, as in the JAX package:
+    # base-level-only tracking of 3D kps costs accuracy on rotation-heavy
+    # sequences (a larger loop endpoint error), and the reference's
+    # motivation (halving CPU level-loop work, a real win
+    # single-kp-at-a-time) does not transfer to batched dispatch.
     klt_3d2d_split: bool = False
     klt_split_frac: float = 0.5     # pyramid-batch capacity / max_kps
 

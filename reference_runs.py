@@ -20,14 +20,18 @@ over them in-process (``--port``: ``python -m ov2slam_torch.run_slam``).
 Slice I solves chip_smoke's three distributed-BA problems (the JAX
 dryrun's two 28-keyframe windows and the 64-keyframe one) with 8 shards:
 the JAX package on 8 virtual CPU devices, the port with 8 in-process
-shards. Slice P is test_pipeline.py::
-test_async_paced_arrival_bench_conditions on the port on the CPU, with
+shards. Slice Q is one run of the protocol bench's ``fast_arc`` cell at
+1000 frames (``tools/protocol_bench.py``, or ``--port``:
+``ov2slam_torch.protocol_bench``). Slice P is test_pipeline.py::
+test_async_paced_arrival_bench_conditions on the port, with
 the front end's wait and map lock as ``--rule`` says (once per
 ``--seeds`` value: the runs differ by timing only); with ``--port`` and
 ``--rule``, slices E and F run as ``chip_smoke.run_async_slice`` does,
 under that rule. ``chip_smoke.py``
-gates the port against these figures. With ``--port`` it runs the port (``ov2slam_torch``) on
-``--device`` (``cpu`` by default, or ``cuda``) instead. ``--seeds`` runs
+gates the port against these figures. With ``--port`` it runs the port
+(``ov2slam_torch``) instead, on ``--device``: the GPU by default (it
+raises without one), or ``--device cpu``; slice P runs on that device
+too. The JAX package always runs on the CPU. ``--seeds`` runs
 once per value: the port's ``SlamManager(seed=...)``, which seeds its
 RANSAC generators, or for the JAX package its PRNG keys (manager s, loop
 closer s + 1000, front end s + 2000 and s + 3000, relocalizer s + 4000) in place of its fixed
@@ -38,13 +42,15 @@ ones. A seed given twice shows whether two runs agree to the last bit.
     JAX_PLATFORMS=cpu python reference_runs.py E
     JAX_PLATFORMS=cpu python reference_runs.py G H
     JAX_PLATFORMS=cpu python reference_runs.py I
-    python3 reference_runs.py --port --device cuda I
-    python reference_runs.py --port P --rule jax-wait --seeds 1 2 3
-    python3 reference_runs.py --port --device cuda --rule jax-wait E F
+    JAX_PLATFORMS=cpu python reference_runs.py Q
+    python3 reference_runs.py --port I
+    python reference_runs.py --port --device cpu P --rule jax-wait \
+        --seeds 1 2 3
+    python3 reference_runs.py --port --rule jax-wait E F
     JAX_PLATFORMS=cpu python reference_runs.py A --seeds 1 2 3
-    python reference_runs.py --port A --seeds 1 2 3
-    python reference_runs.py --port E
-    python3 reference_runs.py --port --device cuda A --seeds 42 42 1 2 3
+    python reference_runs.py --port --device cpu A --seeds 1 2 3
+    python reference_runs.py --port --device cpu E
+    python3 reference_runs.py --port A --seeds 42 42 1 2 3
 """
 
 from __future__ import annotations
@@ -221,6 +227,45 @@ def run_i(args):
                    cost=cost, wall_s=wall)
 
 
+def run_q(args):
+    """Slice Q: the JAX package's ``tools/protocol_bench.py``, one run of
+    the ``fast_arc`` cell at 1000 frames (throughput and 20 fps online),
+    on the CPU, with its persistent compilation cache (a directory in the
+    home) off and its records written to a temporary file; or, with
+    ``--port``, ``ov2slam_torch.protocol_bench`` on ``--device``. Returns
+    the records."""
+    import tempfile
+
+    argv = ["--cells", "fast_arc", "--runs", "1", "--frames", "1000"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "runs.jsonl")
+        if args.port:
+            from ov2slam_torch import protocol_bench
+
+            protocol_bench.main(argv + ["--out", out, "--device",
+                                        args.device])
+        else:
+            import jax
+
+            sys.path.insert(0, os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "tools"))
+            import protocol_bench
+
+            update = jax.config.update
+
+            def no_cache(key, value):
+                if "cache" not in key:
+                    update(key, value)
+            jax.config.update = no_cache
+            sys.argv = ["protocol_bench.py"] + argv + ["--out", out]
+            try:
+                protocol_bench.main()
+            finally:
+                jax.config.update = update
+        with open(out) as f:
+            return [json.loads(x) for x in f]
+
+
 def paced_manager(rule: str):
     """The port's ``AsyncSlamManager`` with the front end's wait and lock
     as ``rule`` says: "tree" (as the package stands: a frame waits until
@@ -266,11 +311,11 @@ def paced_manager(rule: str):
     return Paced if rule != "tree" else AsyncSlamManager
 
 
-def run_paced(rule: str):
+def run_paced(rule: str, device: str):
     """test_pipeline.py::test_async_paced_arrival_bench_conditions on the
-    port (``chip_smoke.paced_arrival``, slice F's stream and config) with
-    the front end's ``rule``: frames dropped, ATE, and the worker's local
-    BA and stereo-mapping ms per keyframe."""
+    port (``chip_smoke.paced_arrival``, slice F's stream and config) on
+    ``device`` with the front end's ``rule``: frames dropped, ATE, and the
+    worker's local BA and stereo-mapping ms per keyframe."""
     import numpy as np
     import torch
 
@@ -280,12 +325,13 @@ def run_paced(rule: str):
     from ov2slam_torch.utils.evaluation import ate_rmse
     from ov2slam_torch.utils.profiler import Profiler
 
-    torch.set_num_threads(1)
+    if device == "cpu":
+        torch.set_num_threads(1)
     seq = synthetic.stream_sequence(**chip_smoke.slice_configs()["F"][0],
                                     realism=synthetic.DEFAULT_REALISM)
     frames = list(seq)
     cfg = chip_smoke.slice_config("F", seq, profiles)
-    slam = paced_manager(rule)(cfg, device="cpu")
+    slam = paced_manager(rule)(cfg, device=device)
     prof = Profiler.instance()
     prof.reset()
     try:
@@ -300,7 +346,7 @@ def run_paced(rule: str):
     paced = len(frames) - chip_smoke.SLICE_F_WARM
     ate = ate_rmse(poses, gt[idx], align_scale=False)
     return dict(slice="F", rule=rule, package="ov2slam_torch",
-                backend="cpu", dropped=dropped, paced_frames=paced,
+                backend=device, dropped=dropped, paced_frames=paced,
                 pace_fps=pace_fps, flat_out_fps=1.0 / med, ate_m=ate,
                 worker_errors=slam.n_worker_errors,
                 local_ba_ms=st.get("3.LocalBA", {}).get("mean_ms"),
@@ -313,13 +359,14 @@ def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("slices", nargs="*", default=["A", "B"])
     ap.add_argument("--port", action="store_true",
-                    help="run ov2slam_torch on the CPU instead of JAX")
-    ap.add_argument("--device", default="cpu", choices=["cpu", "cuda"],
-                    help="the port's device (with --port)")
+                    help="run ov2slam_torch instead of JAX (on the CPU)")
+    ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
+                    help="the port's device, with --port and for slice P "
+                    "(default: the GPU)")
     ap.add_argument("--rule", default=None,
                     choices=["tree", "jax-wait", "narrow-lock"],
                     help="the front end's wait and lock rule: slice P (the "
-                    "paced-arrival test on the port, CPU), or with --port "
+                    "paced-arrival test on the port), or with --port "
                     "slices E and F")
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
                     help="default: the port's seed 42, the JAX package's "
@@ -327,6 +374,11 @@ def main(argv) -> int:
     args = ap.parse_args(argv)
 
     import chip_smoke
+
+    if args.port or "P" in args.slices:
+        from ov2slam_torch.device import resolve_device
+
+        args.device = resolve_device(args.device).type
 
     if args.port:
         from ov2slam_torch.io import synthetic
@@ -371,7 +423,8 @@ def main(argv) -> int:
     for name in args.slices:
         if name == "P":
             for _ in args.seeds or [0]:      # one run per value given
-                print(json.dumps(run_paced(args.rule or "tree")), flush=True)
+                print(json.dumps(run_paced(args.rule or "tree",
+                                           args.device)), flush=True)
             continue
         if args.port and args.rule and name in ("E", "F"):
             # chip_smoke's asynchronous slice with the front end's rule
@@ -387,6 +440,10 @@ def main(argv) -> int:
             continue
         if name == "I":
             for r in run_i(args):
+                print(json.dumps(r), flush=True)
+            continue
+        if name == "Q":
+            for r in run_q(args):
                 print(json.dumps(r), flush=True)
             continue
         if name == "H":

@@ -1,7 +1,8 @@
 """Parity of the port's host utilities with ov2slam_tpu.
 
 - the numpy-only modules the port copies stay verbatim copies (only their
-  import lines may differ);
+  import lines and whole-line comments may differ: the port's comments
+  carry no figure measured on a TPU);
 - the port's native map core (built from native/mapcore.cpp into
   build/ov2slam_torch/) gives the same answers as the JAX package's;
 - the port's profiler records the same scope statistics.
@@ -25,7 +26,7 @@ COPIED = ["utils/config.py", "utils/lie_np.py", "utils/trajectory.py",
 
 def _body(path):
     src = open(path).read().splitlines()
-    return [l for l in src if not re.match(r"\s*(from|import)\s", l)]
+    return [l for l in src if not re.match(r"\s*((from|import)\s|#)", l)]
 
 
 @pytest.mark.parametrize("rel", COPIED)

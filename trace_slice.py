@@ -34,10 +34,19 @@ counts, ``--frames`` LM iterations, traced after a warm solve: per LM
 iteration, the device time and launches of the kernels that take the
 most, and the device's busy share of the solve.
 
+Slice P: the bench's ``full_ba_pcg`` problem (``ov2slam_torch/bench.py``:
+200 KFs, 357218 observations, above the dense-Schur limit) solved by
+``ba_solve_invdepth`` for ``--frames`` robust LM iterations, each a
+matrix-free PCG step, traced after a warm solve: per LM iteration and per
+CG step, the kernels that take the most device time, the device's busy
+share, and the CUDA runtime calls by count (a synchronizing call in the
+CG loop shows here).
+
     python3 trace_slice.py B --warmup 20 --frames 30
     python3 trace_slice.py E --warmup 60 --frames 8
     python3 trace_slice.py F --warmup 45 --frames 8
     python3 trace_slice.py I --frames 5 --shards 1 8
+    python3 trace_slice.py P --frames 1
 """
 
 from __future__ import annotations
@@ -50,7 +59,7 @@ import time
 
 def main(argv) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("slice", choices=["A", "B", "E", "F", "I"])
+    ap.add_argument("slice", choices=["A", "B", "E", "F", "I", "P"])
     ap.add_argument("--warmup", type=int, default=20)
     ap.add_argument("--frames", type=int, default=30)
     ap.add_argument("--top", type=int, default=12)
@@ -69,6 +78,10 @@ def main(argv) -> int:
             print(json.dumps(trace_dist_ba(n, args.frames, args.top,
                                            torch.device("cuda"))),
                   flush=True)
+        return 0
+    if args.slice == "P":
+        print(json.dumps(trace_pcg(args.frames, args.top,
+                                   torch.device("cuda"))), flush=True)
         return 0
     if args.slice in ("E", "F"):
         print(json.dumps(trace_async(args.slice, args.warmup, args.frames,
@@ -173,6 +186,53 @@ def trace_dist_ba(n_shards: int, iters: int, top: int, dev):
         top_kernels=[dict(name=k[:80], launches_per_iter=c / iters,
                           device_ms_per_iter=1e-3 * t / iters)
                      for k, c, t in top_k])
+
+
+def trace_pcg(iters: int, top: int, dev):
+    """Slice P: ``iters`` robust LM iterations of the bench's full_ba_pcg
+    problem under the profiler (after one warm solve); figures per LM
+    iteration and per CG step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ov2slam_torch import bench
+    from ov2slam_torch.solvers import ba_invdepth
+
+    c = bench.FULL_BA_PCG
+    prob = bench.synth_ba_problem(c["n_kf"], c["n_lm"])
+    args, params = bench.ba_inputs(prob, dev)
+    cg = min(max(100, 2 * c["n_kf"]), 600)   # the branch's CG iterations
+
+    def solve():
+        return ba_invdepth.ba_solve_invdepth(
+            *args, params, robust_th=bench.ROBUST_TH, iters=iters)
+
+    solve()
+    torch.cuda.synchronize()
+    calls0 = ba_invdepth._solve_iteration_inv_cg.calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    pcg_steps = ba_invdepth._solve_iteration_inv_cg.calls - calls0
+    n, busy_us, top_k = kernel_table(prof.events(), top)
+    api = sorted(((e.key, e.count) for e in prof.key_averages()
+                  if e.key.startswith("cuda")), key=lambda kv: -kv[1])
+    return dict(
+        slice="P", device=torch.cuda.get_device_name(0),
+        keyframes=c["n_kf"], obs=prob["n_obs"], iters=iters,
+        pcg_steps=pcg_steps, cg_iters_per_step=cg,
+        wall_ms_per_iter=1e3 * wall / iters,
+        device_ms_per_iter=1e-3 * busy_us / iters,
+        busy_share=busy_us * 1e-6 / wall, kernels_per_iter=n / iters,
+        kernels_per_cg_iter=n / iters / cg,
+        wall_us_per_cg_iter=1e6 * wall / iters / cg,
+        runtime_calls_per_iter={k: v / iters for k, v in api[:8]},
+        top_kernels=[dict(name=k[:80], launches_per_iter=m / iters,
+                          device_ms_per_iter=1e-3 * t / iters)
+                     for k, m, t in top_k])
 
 
 class Recorder:
