@@ -12,11 +12,21 @@ Phases (any failure exits non-zero):
      one compaction of slice B's index;
   4. slice A: the loop-closure test sequence (376x240, 160 frames) through
      ``SlamManager`` with the loop closer on — gates on closures, resets,
-     ATE and endpoint error, and on the scorer having run as the kernel
-     (and never as a plain version on the card);
+     ATE and endpoint error, and on the scorer and the KLT having run as
+     their kernels (and never as a plain version on the card; every SLAM
+     slice, A-F and H, is held to the KLT kernel so);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
      ``accurate`` profile and the default 2048-keyframe index — gates on
-     ATE and resets, reports fps and the profiler's per-stage times;
+     ATE and resets, reports fps and the profiler's per-stage times; then
+     the KLT kernel (``csrc/klt_track.cu``) against its plain versions on
+     the card: the test fixtures (dead rows, a flat block the min-eigenvalue
+     gate stops, the split tracker at n_sub 8 and 64, overflowing), slice
+     B's frame pair at its slot count (forward klt_track and fb_klt_track)
+     and its stereo pair with SAD priors (the mapper's call). Gates:
+     status equal on >= 99% of the keypoints, positions within 1e-2 px
+     where both track, two launches bit-equal. Times each call (events,
+     device, kernels per call, the plain version, the bound at the data's
+     steps) and one LK step's latency (one keypoint, iters 1 against 30);
   6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
      BA, results written — gates on mono initialization, post-init frames,
      scale-aligned ATE, resets and the result files;
@@ -33,13 +43,14 @@ Phases (any failure exits non-zero):
      (752x480 arc with photometric realism, ``fast`` profile, chained at
      depth 2, 30 warm frames, then paced at 0.75 x the flat-out rate with
      frames dropped when behind). Gates: <= 10% of the paced frames
-     dropped, ATE < 0.05 m, 0 worker errors. Its loop closer is off, so it
-     launches no kernel;
+     dropped, ATE < 0.05 m, 0 worker errors. Its loop closer is off, so
+     the scorer never launches;
  10. entry: ``ov2slam_torch.entry.entry()`` (fb-KLT of 256 keypoints over
-     two 4-level 752x480 pyramids): ms per call, CUDA kernels per call
-     (torch.profiler), and agreement with the same call on the CPU
-     (status equal on >= 99% of keypoints, positions within 1e-2 px where
-     both track);
+     two 4-level 752x480 pyramids): one call launches the KLT kernel once
+     and no plain version; ms per call, device ms, CUDA kernels per call
+     (torch.profiler), the plain version's ms, and agreement with the same
+     call on the CPU (status equal on >= 99% of keypoints, positions within
+     1e-2 px where both track);
  11. slice G: RGB-D fusion into a TsdfVolume of 640x640x64 voxels (26.2 M,
      524 MB of state) from the fork's CARLA rig (six 800x600 90-degree
      RGB-D cameras over 30 rig steps of a synthetic street, ray cast on the
@@ -94,10 +105,10 @@ populated prefix of the index, every M it took; for C, D, E and H every
 path; the bench's, its lc_query store and every shape e2e_loop launched,
 are held in its phase) against its plain versions and timed at the last,
 one JSON line of
-the plain-torch work with a bound (TSDF integration, the ESDF sweep,
-entry()'s fb-KLT with an estimate of its dependent chain, an LM iteration
-of the distributed BA), one JSON line of kernel records, the card's name and
-power limit, and the final ``{"ok": true, "device": ...}`` line.
+the plain-torch work with a bound (TSDF integration, the ESDF sweep, an LM
+iteration of the distributed BA), one JSON line of kernel records (the KLT
+kernel and the scorer), the card's name and power limit, and the final
+``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
 fixed seeds.
@@ -731,11 +742,13 @@ def run_slice(name: str, dev, seq=None):
     hamming.match_scores_bits.shapes.clear()
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
+    reset_klt_counts()
     synchronize(dev)
     t0 = time.perf_counter()
     trace = drive_slice(name, slam, seq)
     synchronize(dev)
     wall = time.perf_counter() - t0
+    klt = klt_counts()
     launches = hamming.match_scores_bits.launches
     shapes = dict(hamming.match_scores_bits.shapes)
     plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
@@ -762,10 +775,11 @@ def run_slice(name: str, dev, seq=None):
                scorer_plain_runs_on_cuda=plain_cuda,
                index_rows=len(slam.loop_closer.index.kf_ids),
                lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
-               index_cube_bytes=slam.loop_closer.index._cube.numel())
+               index_cube_bytes=slam.loop_closer.index._cube.numel(), **klt)
     print(f"[slice {name}] " + json.dumps(res), flush=True)
     print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
           flush=True)
+    gate_klt_launches(name, res)
     if launches <= 0:
         fail(f"slice {name}: the scorer kernel never launched")
     if plain_cuda != 0:
@@ -902,6 +916,7 @@ def run_async_slice(name: str, dev, seq=None):
     hamming.match_scores_bits.origins.clear()
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
+    reset_klt_counts()
     syncs = DispatchSyncCounter(slam.frontend, first=10 if name == "F"
                                 else 20)
     synchronize(dev)
@@ -921,6 +936,7 @@ def run_async_slice(name: str, dev, seq=None):
     finally:
         slam.close()
     joined = not slam._worker.is_alive()
+    klt = klt_counts()
     launches = hamming.match_scores_bits.launches
     shapes = dict(hamming.match_scores_bits.shapes)
     origins = dict(hamming.match_scores_bits.origins)
@@ -953,7 +969,7 @@ def run_async_slice(name: str, dev, seq=None):
                                                    worker_stream), 0),
                scorer_plain_runs_on_cuda=plain_cuda,
                sync_debug=syncs.result(), max_kps=cfg.max_kps,
-               lc_recent_mask=cfg.lc_recent_mask)
+               lc_recent_mask=cfg.lc_recent_mask, **klt)
     if slam.loop_closer is not None:
         res.update(index_rows=len(slam.loop_closer.index.kf_ids),
                    index_cube_bytes=slam.loop_closer.index._cube.numel())
@@ -976,6 +992,7 @@ def gate_async(r, b=None) -> None:
         fail(f"slice {name}: close() did not join the worker")
     if r["scorer_plain_runs_on_cuda"] != 0:
         fail(f"slice {name}: the plain scorer ran on cuda")
+    gate_klt_launches(name, r)
     sd = r["sync_debug"]
     print(f"[slice {name}] synchronizing calls reported by "
           f"set_sync_debug_mode('warn') on the front end's thread during "
@@ -984,8 +1001,8 @@ def gate_async(r, b=None) -> None:
           f"thread's in the same windows: {sd['worker_syncs_in_window']}); "
           f"sites {sd['sites']}", flush=True)
     print(f"[slice {name}] worker stream {r['worker_stream']}; scorer "
-          f"launches by (thread, stream): {r['scorer_origins']}",
-          flush=True)
+          f"launches by (thread, stream): {r['scorer_origins']}; KLT "
+          f"launches by (thread, stream): {r['klt_origins']}", flush=True)
     if name == "E":
         if sd["dispatches"] != SYNC_COUNT_DISPATCHES:
             fail(f"slice E: {sd['dispatches']} chained dispatches counted")
@@ -1013,8 +1030,9 @@ def gate_async(r, b=None) -> None:
         print(f"[slice F] paced at {r['pace_fps']:.4f} fps (0.75 x the "
               f"flat-out {r['flat_out_fps']:.4f}), {r['dropped']} of "
               f"{r['paced_frames']} paced frames dropped, ATE "
-              f"{r['ate_m']} m; the fast profile has the loop closer off, "
-              "so this slice launches no kernel", flush=True)
+              f"{r['ate_m']} m; {r['klt_launches']} KLT launches; the fast "
+              "profile has the loop closer off, so the scorer never "
+              "launches", flush=True)
 
 
 def gate(name: str, what: str, value, limit) -> None:
@@ -1434,9 +1452,11 @@ def run_slice_h(part: str, dev):
         hamming.match_scores_bits.shapes.clear()
         hamming.match_scores_bits_plain.cuda_runs = 0
         hamming.match_scores_plain.cuda_runs = 0
+        reset_klt_counts()
         t0 = time.perf_counter()
         report, slam = run_slam.main(argv + ["--device", str(dev)])
         run_s = time.perf_counter() - t0
+        klt = klt_counts()
         launches = hamming.match_scores_bits.launches
         shapes = dict(hamming.match_scores_bits.shapes)
         plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
@@ -1458,7 +1478,7 @@ def run_slice_h(part: str, dev):
                scorer_plain_runs_on_cuda=plain_cuda,
                index_cube_bytes=(lc.index._cube.numel() if lc is not None
                                  else 0),
-               worker_errors=getattr(slam, "n_worker_errors", None))
+               worker_errors=getattr(slam, "n_worker_errors", None), **klt)
     print(f"[slice H] {part}: " + json.dumps(res), flush=True)
     return res
 
@@ -1474,6 +1494,7 @@ def gate_slice_h(r) -> None:
         fail(f"slice H {part}: the saved map did not reload equal")
     if r["scorer_plain_runs_on_cuda"] != 0:
         fail(f"slice H {part}: the plain scorer ran on cuda")
+    gate_klt_launches(f"H {part}", r)
     if part == "kitti" and r["scorer_launches"] < 1:
         fail("slice H kitti: the scorer kernel never launched under the CLI")
     if r["worker_errors"]:
@@ -1689,6 +1710,375 @@ def run_slice_i(dev):
 
 
 # ---------------------------------------------------------------------- #
+# phase klt: the KLT kernel against its plain versions
+# ---------------------------------------------------------------------- #
+
+KLT_STATUS_SHARE = 0.99      # status equal on at least this share of rows
+KLT_POS_PX = 1e-2            # positions where both track, px
+KLT_KERNEL_SYMBOL = "klt_kernel"   # csrc/klt_track.cu's __global__
+
+
+def klt_pair_case():
+    """test_torch_klt.py's pair fixture, built with the port's modules:
+    frames 0 and 2 of a 188x120 synthetic sequence (seed 1) and the
+    Shi-Tomasi keypoints of frame 0 in 160 slots (dead rows where a cell
+    found none). Numpy arrays: prev, cur, kps, valid."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.io.synthetic import generate_sequence
+    from ov2slam_torch.ops.detect import detect_single_scale
+
+    seq = generate_sequence(n_frames=3, stereo=False, width=188, height=120,
+                            n_points=700, seed=1, speed=0.05)
+    a = seq.images_left[0].astype(np.float32)
+    b = seq.images_left[2].astype(np.float32)
+    kps, _, ok = detect_single_scale(
+        torch.as_tensor(a), torch.zeros((1, 2)),
+        torch.zeros(1, dtype=torch.bool), 0.001, 12, 160)
+    return a, b, kps.numpy().astype(np.float32), ok.numpy()
+
+
+def klt_split_case():
+    """test_torch_klt.py's split-overflow case: a blurred random 160x120
+    image and its copy shifted by (5, -3) px, 48 keypoints, the even ones
+    3D (``base_only``) with the true shift as prior. Numpy arrays: prev,
+    cur, kps, priors, base_only."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.core.camera import bilinear_sample
+    from ov2slam_torch.core.image import gaussian_blur
+
+    rng = np.random.default_rng(7)
+    base = rng.uniform(0, 255, size=(120, 160)).astype(np.float32)
+    base = gaussian_blur(torch.as_tensor(base), 2.0, 4).numpy()
+    yy, xx = np.meshgrid(np.arange(120, dtype=np.float32),
+                         np.arange(160, dtype=np.float32), indexing="ij")
+    cur = bilinear_sample(torch.as_tensor(base), torch.as_tensor(
+        np.stack([xx - 5.0, yy + 3.0], -1))).numpy()
+    n = 48
+    kps = rng.uniform([20, 20], [140, 100], size=(n, 2)).astype(np.float32)
+    base_only = np.arange(n) % 2 == 0
+    prior = np.where(base_only[:, None], kps + np.float32([5.0, -3.0]), kps)
+    return base, cur, kps, prior.astype(np.float32), base_only
+
+
+def klt_flat_case():
+    """The split case's frames with a flat block in both and the even
+    keypoints inside it, where G vanishes and the min-eigenvalue gate
+    stops them. Numpy arrays: prev, cur, kps, priors."""
+    import numpy as np
+
+    base, cur, kps, _, _ = klt_split_case()
+    base[30:90, 30:110] = 128.0
+    cur[30:90, 30:110] = 128.0
+    kps[::2] = np.float32([45, 45]) + (kps[::2] % 20)
+    return base, cur, kps, kps + np.float32([1.0, 0.5])
+
+
+def reset_klt_counts() -> None:
+    """Zero the KLT kernel's launch counters and the plain versions' calls
+    on CUDA tensors."""
+    from ov2slam_torch.ops import klt
+
+    klt.klt_track.launches = 0
+    klt.klt_track.shapes.clear()
+    klt.klt_track.origins.clear()
+    klt.klt_track_plain.cuda_runs = 0
+    klt.fb_klt_track_plain.cuda_runs = 0
+
+
+def klt_counts():
+    """The counters :func:`reset_klt_counts` zeroes, as JSON-ready values:
+    launches, [N, levels, fb, count] per shape, [thread, stream, count] per
+    origin, and the plain versions' calls on CUDA tensors."""
+    from ov2slam_torch.ops import klt
+
+    return dict(
+        klt_launches=klt.klt_track.launches,
+        klt_shapes=[[*k, v] for k, v in sorted(klt.klt_track.shapes.items())],
+        klt_origins=[[t, s, v] for (t, s), v in
+                     sorted(klt.klt_track.origins.items())],
+        klt_plain_runs_on_cuda=(klt.klt_track_plain.cuda_runs
+                                + klt.fb_klt_track_plain.cuda_runs))
+
+
+def gate_klt_launches(name: str, counts) -> None:
+    """Every SLAM slice's main path tracks through the kernel, and never
+    through a plain version on the card."""
+    if counts["klt_launches"] < 1:
+        fail(f"slice {name}: the KLT kernel never launched")
+    if counts["klt_plain_runs_on_cuda"] != 0:
+        fail(f"slice {name}: the plain KLT ran "
+             f"{counts['klt_plain_runs_on_cuda']} times on cuda")
+
+
+class KltSet:
+    """One KLT call of the phase: ``mode`` "klt" (``klt_track``), "fb"
+    (``fb_klt_track``) or "split" (``fb_klt_track_split`` with ``n_sub``
+    and ``base_only``), its inputs on the card and its options."""
+
+    def __init__(self, label, mode, pyr_prev, pyr_cur, kps, priors, valid,
+                 **opts):
+        self.label, self.mode = label, mode
+        self.args = (tuple(pyr_prev), tuple(pyr_cur), kps, priors, valid)
+        self.split = {k: opts.pop(k) for k in ("base_only", "n_sub")
+                      if k in opts}
+        self.opts = opts
+
+    def run(self, plain: bool = False):
+        from ov2slam_torch.ops import klt
+
+        if self.mode == "klt":
+            fn = klt.klt_track_plain if plain else klt.klt_track
+            return fn(*self.args, **self.opts)[:2]
+        if self.mode == "fb":
+            fn = klt.fb_klt_track_plain if plain else klt.fb_klt_track
+            return fn(*self.args, **self.opts)
+        if not plain:
+            return klt.fb_klt_track_split(
+                *self.args, self.split["base_only"], self.split["n_sub"],
+                **self.opts)
+        # the split's two fb calls through the plain version, on the card
+        orig, klt.fb_klt_track = klt.fb_klt_track, klt.fb_klt_track_plain
+        try:
+            return klt.fb_klt_track_split(
+                *self.args, self.split["base_only"], self.split["n_sub"],
+                **self.opts)
+        finally:
+            klt.fb_klt_track = orig
+
+
+def klt_set_bound(s):
+    """The bound of one call of ``s`` (``roofline.fb_klt_bound`` of each
+    launch it makes, at the steps this data took), and the launches'
+    dependent chains summed."""
+    import torch
+
+    from ov2slam_torch.ops import klt
+
+    seen = []
+    orig = klt.launch
+
+    def counting(pyr_prev, pyr_cur, kps, priors, valid, back_levels=0,
+                 **kw):
+        steps = torch.zeros(kps.shape[0], dtype=torch.int32,
+                            device=kps.device)
+        out = orig(pyr_prev, pyr_cur, kps, priors, valid, back_levels,
+                   steps=steps, **kw)
+        seen.append((kps.cpu().numpy(), [tuple(p.shape) for p in pyr_prev],
+                     back_levels, kw, steps.cpu().numpy()))
+        return out
+
+    klt.launch = counting
+    try:
+        s.run()
+    finally:
+        klt.launch = orig
+    ops = nbytes = steps = 0
+    chain = 0.0
+    for kps, shapes, back, kw, st in seen:
+        b = fb_klt_bound(kps, shapes, win=kw.get("win", 9),
+                         iters=kw.get("iters", 30),
+                         margin=kw.get("margin", 5), back_levels=back,
+                         steps=st)
+        ops, nbytes = ops + b["ops"], nbytes + b["bytes"]
+        steps += b["steps"]
+        chain += b["chain_estimate_ms"]
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(launches_per_call=len(seen), ops=ops, bytes=nbytes,
+                steps=steps, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                chain_ms=chain)
+
+
+def klt_check(s):
+    """The kernel against the plain version on ``s``'s inputs on the card:
+    status equal on >= ``KLT_STATUS_SHARE`` of the rows, positions within
+    ``KLT_POS_PX`` where both track, and a second launch bit-equal to the
+    first. Returns the agreement figures."""
+    import numpy as np
+    import torch
+
+    got, again, want = s.run(), s.run(), s.run(plain=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        fail(f"klt_track {s.label}: two launches differ")
+    gpx, gst = (x.cpu().numpy() for x in got)
+    wpx, wst = (x.cpu().numpy() for x in want)
+    if not (np.isfinite(gpx).all() and gpx.shape == wpx.shape):
+        fail(f"klt_track {s.label}: positions not finite or misshapen")
+    share = float((gst == wst).mean())
+    both = gst & wst
+    err = float(np.abs(gpx[both] - wpx[both]).max()) if both.any() else 0.0
+    res = dict(label=s.label, mode=s.mode, keypoints=len(gst),
+               tracked_kernel=int(gst.sum()), tracked_plain=int(wst.sum()),
+               status_equal_share=share, both_tracked=int(both.sum()),
+               max_pos_err=err)
+    if share < KLT_STATUS_SHARE or err > KLT_POS_PX or not both.any():
+        fail(f"klt_track {s.label}: kernel and plain disagree: {res}")
+    return res
+
+
+def time_klt(s, runs: int = 20, plain_runs: int = 3):
+    """``s``'s kernel call: median ms (events around one call), device ms
+    (calls queued behind a sleep), CUDA kernels per call
+    (:func:`klt_kernels_per_call`), its bound, and the plain version's
+    median ms."""
+    kernels_per_call, n_klt, seen = klt_kernels_per_call(s.run, 3)
+    return dict(ms=time_cuda(s.run, runs),
+                device_ms=time_cuda_queued(s.run, runs),
+                kernels_per_call=kernels_per_call,
+                klt_launches_per_call=n_klt,
+                klt_device_events_traced_per_call=seen,
+                plain_ms=time_cuda(lambda: s.run(plain=True), plain_runs),
+                **klt_set_bound(s))
+
+
+def klt_fixture_sets(dev):
+    """The test fixtures as calls on the card: the pair (klt and fb), the
+    flat block (fb) and the split-overflow case at n_sub 8 and 64."""
+    import torch
+
+    from ov2slam_torch.core.image import build_pyramid
+
+    def pyr(img, levels):
+        return tuple(build_pyramid(torch.as_tensor(img, device=dev), levels))
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    a, b, kps, ok = klt_pair_case()
+    pp, pc = pyr(a, 4), pyr(b, 4)
+    out = [KltSet("fixture pair, klt_track", "klt", pp, pc, t(kps), t(kps),
+                  t(ok)),
+           KltSet("fixture pair, fb_klt_track", "fb", pp, pc, t(kps),
+                  t(kps), t(ok))]
+    fa, fb, fk, fp = klt_flat_case()
+    out.append(KltSet("fixture flat block, fb_klt_track", "fb", pyr(fa, 3),
+                      pyr(fb, 3), t(fk), t(fp),
+                      torch.ones(len(fk), dtype=torch.bool, device=dev)))
+    base, cur, kps, prior, base_only = klt_split_case()
+    for n_sub in (8, 64):
+        out.append(KltSet(
+            f"fixture split, n_sub {n_sub}", "split", pyr(base, 3),
+            pyr(cur, 3), t(kps), t(prior),
+            torch.ones(len(kps), dtype=torch.bool, device=dev),
+            base_only=t(base_only), n_sub=n_sub))
+    return out
+
+
+def klt_slice_sets(seq, cfg, dev, frame: int = 40):
+    """Slice B's frames as the front end and the mapper track them: the
+    left frames ``frame`` and ``frame + 1`` (CLAHE as configured, the
+    config's pyramid) with the keypoints detected in the first at the
+    config's slot count, as the front end's default fb tracking (the
+    forward klt_track over the pyramid, the backward one on the base
+    level) and as one fb_klt_track; and the stereo pair of ``frame`` as
+    the mapper tracks it (SAD priors along the row, fb_klt_track)."""
+    import torch
+
+    from ov2slam_torch.core.image import build_pyramid, clahe
+    from ov2slam_torch.ops.detect import detect_single_scale
+    from ov2slam_torch.ops.stereo_sad import line_min_sad
+
+    def pyr(img):
+        im = torch.as_tensor(img, device=dev, dtype=torch.float32)
+        if cfg.use_clahe:
+            im = clahe(im, cfg.clahe_val)
+        return tuple(build_pyramid(im, cfg.klt_levels))
+
+    p0, p1 = pyr(seq.images_left[frame]), pyr(seq.images_left[frame + 1])
+    pr = pyr(seq.images_right[frame])
+    kps, _, ok = detect_single_scale(
+        p0[0], torch.zeros((1, 2), device=dev),
+        torch.zeros(1, dtype=torch.bool, device=dev), cfg.max_quality,
+        cfg.max_dist, cfg.max_kps)
+    opts = dict(win=cfg.klt_win_size, iters=cfg.max_iter,
+                max_err=cfg.klt_err)
+    fb_opts = dict(opts, max_fb_dist=cfg.max_fbklt_dist)
+    what = f"{seq.width}x{seq.height}, {cfg.max_kps} slots"
+    sad, _, _ = line_min_sad(p0[0], pr[0], kps, ok)
+    sad = torch.where(ok[:, None], sad, kps)
+    return [
+        KltSet(f"slice B frames {frame}->{frame + 1} ({what}), forward "
+               "klt_track", "klt", p0, p1, kps, kps, ok, **opts),
+        KltSet(f"slice B frames {frame}->{frame + 1} ({what}), fb_klt_track",
+               "fb", p0, p1, kps, kps, ok, **fb_opts),
+        KltSet(f"slice B stereo pair {frame} ({what}), SAD priors, "
+               "fb_klt_track (the mapper's)", "fb", p0, pr, kps, sad, ok,
+               **fb_opts)]
+
+
+def klt_step_latency(dev, runs: int = 200):
+    """One LK step's latency on the card: one keypoint of ``entry()``'s
+    noise images that takes every step without converging, tracked at the
+    base level with ``iters`` 1 and 30, each launch's device time from
+    ``runs`` launches queued behind a sleep; the step is the difference
+    over 29 steps. Returns ns and SM cycles (at ``SM_CLOCK_HZ``) a step."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.entry import entry_arrays
+    from ov2slam_torch.ops import klt
+
+    img0, img1, kps = entry_arrays()
+    pp = (torch.as_tensor(img0, device=dev),)
+    pc = (torch.as_tensor(img1, device=dev),)
+    k = torch.as_tensor(kps, device=dev)
+    v = torch.ones(len(kps), dtype=torch.bool, device=dev)
+    steps = torch.zeros(len(kps), dtype=torch.int32, device=dev)
+    klt.launch(pp, pc, k, k, v, 0, iters=30, steps=steps)
+    full = np.nonzero(steps.cpu().numpy() == 30)[0]
+    if len(full) == 0:
+        fail("klt step latency: no keypoint takes 30 steps")
+    one, v1 = k[full[:1]].contiguous(), v[:1].contiguous()
+    st1 = torch.zeros(1, dtype=torch.int32, device=dev)
+    t = {}
+    for it in (1, 30):
+        klt.launch(pp, pc, one, one, v1, 0, iters=it, steps=st1)
+        if int(st1.item()) != it:
+            fail(f"klt step latency: {int(st1.item())} steps of {it}")
+        t[it] = time_cuda_queued(
+            lambda: klt.launch(pp, pc, one, one, v1, 0, iters=it), runs)
+    ns = 1e6 * (t[30] - t[1]) / 29
+    return dict(launch_ms_iters1=t[1], launch_ms_iters30=t[30],
+                step_ns=ns, step_cycles=ns * 1e-9 * SM_CLOCK_HZ,
+                keypoint=int(full[0]))
+
+
+def phase_klt(dev, seq_b, cfg_b):
+    """The KLT kernel held against its plain versions on the card (the
+    test fixtures, slice B's frame pair and stereo pair, the split-overflow
+    case) and timed at each, and one step's latency. Returns the rows, the
+    largest position difference where both tracked, and the latency."""
+    t0 = time.perf_counter()
+    rows, err = [], 0.0
+    for s in klt_fixture_sets(dev) + klt_slice_sets(seq_b, cfg_b, dev):
+        agree = klt_check(s)
+        err = max(err, agree["max_pos_err"])
+        row = dict(**agree, **time_klt(s))
+        print(f"[kernels] klt_track {s.label}: status equal on "
+              f"{row['status_equal_share']:.4f} of {row['keypoints']}, "
+              f"{row['both_tracked']} tracked by both within "
+              f"{row['max_pos_err']:.2e} px; {row['ms']:.4f} ms per call, "
+              f"{row['device_ms']:.4f} ms on the device, "
+              f"{row['kernels_per_call']:.0f} kernels, plain "
+              f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.5f} ms "
+              f"({row['bound_by']}), chain {row['chain_ms']:.5f} ms",
+              flush=True)
+        rows.append(row)
+    lat = klt_step_latency(dev)
+    print(f"[kernels] klt_track one LK step: {lat['step_ns']:.1f} ns "
+          f"({lat['step_cycles']:.0f} cycles at {SM_CLOCK_HZ / 1e9} GHz; "
+          f"launch {lat['launch_ms_iters1']:.5f} ms at iters 1, "
+          f"{lat['launch_ms_iters30']:.5f} ms at iters 30); phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, err, lat
+
+
+# ---------------------------------------------------------------------- #
 # phase entry: the fb-KLT flagship call
 # ---------------------------------------------------------------------- #
 
@@ -1716,20 +2106,60 @@ def kernel_launches_per_call(fn, calls: int = 1):
     return len(dev_us) / calls, api / calls, 1e-3 * sum(dev_us) / calls
 
 
+def klt_kernels_per_call(fn, calls: int = 3):
+    """CUDA kernels per call of ``fn``, a call that launches the KLT
+    kernel: torch's kernels from a torch.profiler trace, plus the KLT
+    kernel's launches from its wrapper's counter, because the trace holds
+    the device events of only some of the kernel's ctypes launches
+    (PERF.md §7). Returns (kernels, KLT launches, KLT device events that
+    the trace holds), each per call; the KLT's device time comes from
+    CUDA events (``time_cuda_queued``), not from the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ov2slam_torch.ops import klt
+
+    fn()
+    torch.cuda.synchronize()
+    n0 = klt.klt_track.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n_klt = klt.klt_track.launches - n0
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    seen = sum(KLT_KERNEL_SYMBOL in e.name for e in dev)
+    torch_kernels = len(dev) - seen
+    return (torch_kernels + n_klt) / calls, n_klt / calls, seen / calls
+
+
 def phase_entry(dev):
-    """``entry()`` on the card: ms per call (CUDA events, warm, median of
-    20), kernels per call, and agreement with the same call on the CPU."""
+    """``entry()`` on the card: one call launches the KLT kernel once and
+    no plain version; ms per call (CUDA events, warm, median of 20), device
+    ms (20 calls queued behind a sleep), kernels per call, the plain
+    version's ms, the bound at this data's steps, and agreement with the
+    same call on the CPU."""
     import numpy as np
     import torch
 
     from ov2slam_torch.entry import entry
-    from ov2slam_torch.ops.klt import klt_track
+    from ov2slam_torch.ops.klt import fb_klt_track_plain, klt_track
 
     fn, args = entry()
-    bound = fb_klt_bound(args[2].cpu().numpy(),
-                         [tuple(p.shape) for p in args[0]])
+    reset_klt_counts()
+    fn(*args)
+    torch.cuda.synchronize()
+    counts = klt_counts()
+    if counts["klt_launches"] != 1 or counts["klt_plain_runs_on_cuda"]:
+        fail(f"entry: one call made {counts}")
+    bound = klt_set_bound(KltSet("entry()", "fb", *args, win=9, iters=30))
     ms = time_cuda(lambda: fn(*args), 20)
-    kernels, api, dev_ms = kernel_launches_per_call(lambda: fn(*args))
+    device_ms = time_cuda_queued(lambda: fn(*args), 20)
+    kernels, _, seen = klt_kernels_per_call(lambda: fn(*args), 3)
+    plain_ms = time_cuda(lambda: fb_klt_track_plain(*args, win=9, iters=30),
+                         3)
     gpx, gst = (a.cpu().numpy() for a in fn(*args))
     cfn, cargs = entry(device="cpu")
     cpx, cst = (a.numpy() for a in cfn(*cargs))
@@ -1742,8 +2172,10 @@ def phase_entry(dev):
     gf = klt_track(*args, win=9, iters=30)[0].cpu().numpy()
     cf = klt_track(*cargs, win=9, iters=30)[0].numpy()
     fwd_differ = float((np.abs(gf - cf).max(1) > 1e-2).mean())
-    res = dict(ms_per_call=ms, kernels_per_call=kernels,
-               cuda_launch_calls_per_call=api, device_ms_per_call=dev_ms,
+    res = dict(ms_per_call=ms, device_ms_per_call=device_ms,
+               kernels_per_call=kernels,
+               klt_device_events_traced_per_call=seen, plain_ms=plain_ms,
+               klt_launches_per_call=counts["klt_launches"],
                keypoints=len(gst),
                tracked_card=int(gst.sum()), tracked_cpu=int(cst.sum()),
                status_equal_share=same_status, both_tracked=int(both.sum()),
@@ -1813,6 +2245,7 @@ def phase_bench(dev):
     hamming.match_scores_bits.shapes.clear()
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
+    reset_klt_counts()
     detail = {}
     saved = {k: dict(getattr(bench, k)) for k in BENCH_DEPTH}
     try:
@@ -1825,6 +2258,7 @@ def phase_bench(dev):
     launches = hamming.match_scores_bits.launches
     plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
                   + hamming.match_scores_plain.cuda_runs)
+    klt = klt_counts()
     t_bench = time.perf_counter() - t0
     line, stages = detail["line"], detail["stages"]
     print("[bench] " + json.dumps(line), flush=True)
@@ -1854,6 +2288,7 @@ def phase_bench(dev):
         fail(f"bench: lc_query scored {stages['lc_query']['scorer_shapes']}")
     if plain_cuda:
         fail("bench: the plain scorer ran on cuda")
+    gate_klt_launches("bench", klt)
     for name in ("e2e_async", "e2e_async20", "e2e_async40"):
         if stages[name].get("n_worker_errors") != 0:
             fail(f"bench: {name} had worker errors")
@@ -1899,7 +2334,8 @@ def phase_bench(dev):
           f"protocol smoke {t_protocol:.1f} s); line {len(json.dumps(line))}"
           f" bytes; scorer launches {launches}", flush=True)
     return dict(line=line, launches=launches, rows=rows, err=err,
-                seconds=secs, protocol=recs)
+                seconds=secs, protocol=recs,
+                klt_launches=klt["klt_launches"])
 
 
 def main() -> int:
@@ -1911,6 +2347,7 @@ def main() -> int:
         return 2
     from ov2slam_torch import kernels
     from ov2slam_torch.device import resolve_device
+    from ov2slam_torch.utils import profiles
 
     t_start = time.perf_counter()
     dev = resolve_device(None)
@@ -1942,6 +2379,8 @@ def main() -> int:
     gate_b = max(0.09, 1.25 * JAX_SLICE_B_ATE)
     if not b["ate_m"] <= gate_b:
         fail(f"slice B: ATE {b['ate_m']:.4f} m > {gate_b:.4f}")
+    klt_rows, klt_err, klt_step = phase_klt(
+        dev, seq_b, slice_config("B", seq_b, profiles))
 
     c, _ = run_slice("C", dev)
     gate_slice_c(c)
@@ -1989,7 +2428,31 @@ def main() -> int:
     paths += bn["rows"]
     top = {k: paths[0][k] for k in ("ms", "device_ms", "plain_ms",
                                      "bound_ms", "bound_by", "shape")}
-    kernels_line = {"kernels": [dict(
+    # the KLT kernel's top-level figures are slice B's fb_klt_track call
+    # (the front end's frame pair); its launches those of every SLAM slice
+    # and of the bench
+    klt_top = next(r for r in klt_rows if r["label"].startswith(
+        "slice B frames") and r["mode"] == "fb")
+    klt_line = dict(
+        name="klt_track", route="cuda",
+        source="ov2slam_torch/csrc/klt_track.cu",
+        replaces="ov2slam_tpu/ops/klt.py:40",
+        launches=sum(r["klt_launches"] for r in (a, b, c, d, e, f,
+                                                 *h.values()))
+        + bn["klt_launches"],
+        max_abs_err=klt_err, library_ms=None,
+        **{k: klt_top[k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "kernels_per_call", "chain_ms", "keypoints")},
+        launches_by_slice={r["slice"] + (" " + r["part"] if "part" in r
+                                         else ""): r["klt_launches"]
+                           for r in (a, b, c, d, e, f, *h.values())},
+        bench_launches=bn["klt_launches"], step_latency=klt_step,
+        entry={k: ent[k] for k in (
+            "ms_per_call", "device_ms_per_call", "kernels_per_call",
+            "plain_ms", "bound_ms", "bound_by", "chain_ms")},
+        paths=klt_rows)
+    kernels_line = {"kernels": [klt_line, dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
@@ -2011,12 +2474,6 @@ def main() -> int:
              kernels_per_call=g["esdf_sweep_kernels"],
              bound_ms=g["esdf_sweep_bound_ms"], bound_by="bytes",
              voxels=g["voxels"]),
-        dict(name="entry_fb_klt", source="ov2slam_torch/entry.py",
-             ms=ent["ms_per_call"], kernels_per_call=ent["kernels_per_call"],
-             cuda_launch_calls_per_call=ent["cuda_launch_calls_per_call"],
-             device_ms=ent["device_ms_per_call"], bound_ms=ent["bound_ms"],
-             bound_by=ent["bound_by"],
-             chain_estimate_ms=ent["chain_estimate_ms"]),
         dict(name="dist_ba_iteration",
              source="ov2slam_torch/parallel/dist_ba.py",
              ms=i8["ms_per_iter"], calls=sum(

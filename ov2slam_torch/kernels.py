@@ -40,6 +40,13 @@ _SIGNATURES = {
                       [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
                        _C.c_int, _C.c_int, _C.c_int, _C.c_int,
                        _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+    "klt_track": ("klt_track_launch", _C.c_int,
+                  [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
+                   _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                   _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+                   _C.c_int, _C.c_float, _C.c_float, _C.c_float, _C.c_float,
+                   _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                   _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
 

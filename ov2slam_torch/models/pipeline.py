@@ -17,8 +17,9 @@ worker thread. Queue semantics mirror the reference:
   closure) are skipped (`bnewkfavailable_` checks, `mapper.cpp:153-162`).
 
 Map consistency: one coarse lock guards map mutations — the granularity of
-the reference's `map_mutex_`; BA solves run outside the lock on problem
-snapshots, with a locked write-back (`optimizer.cpp:741`).
+the reference's `map_mutex_`. The solvers take it for the problem snapshot
+and the write-back only (`optimizer.cpp:741`); the worker holds it through
+a keyframe's mapping and local BA all the same (see below).
 
 On a GPU the worker runs on a CUDA stream of its own, so its kernels
 overlap the front end's. The lock orders the host only; the streams are
@@ -50,6 +51,12 @@ the 752x480 loop the port's smoke test drives (slice E) and on the tests'
   paced slice dropped 9-13 of 80 frames against 0-3 without it;
 - a frame waits until every queued keyframe is mapped (see
   ``process_frame``);
+- the worker holds the map lock through a keyframe's mapping and local
+  BA, so that its host work never interleaves with a front-end frame's:
+  on a GPU both are launch-bound Python on one interpreter, and
+  interleaved they took longer than in turn (the paced slice dropped
+  9-19 of 80 frames against 0-3 held); their device work still overlaps
+  on the worker's stream. The loop closer's cascade stays outside it;
 - a loop closure's correction reaches the front end as BA's does.
 """
 
@@ -225,12 +232,13 @@ class AsyncSlamManager(SlamManager):
                 self._take_over(it)
             skipped = []
             for kfid, seq, pyr, img_right, _ in items[:-1]:
-                if self.map.kf_valid[kfid] \
-                        and int(self.map.kf_seq[kfid]) == seq:
-                    self.mapper.process_keyframe(
-                        kfid, self.frontend.frame, pyr, img_right,
-                        lock=self.map_lock)
-                    skipped.append(kfid)
+                with self.map_lock:
+                    if self.map.kf_valid[kfid] \
+                            and int(self.map.kf_seq[kfid]) == seq:
+                        self.mapper.process_keyframe(
+                            kfid, self.frontend.frame, pyr, img_right,
+                            lock=self.map_lock)
+                        skipped.append(kfid)
                 with self._pending_cv:
                     self._unmapped = max(0, self._unmapped - 1)
                     self._pending_cv.notify_all()
@@ -257,25 +265,27 @@ class AsyncSlamManager(SlamManager):
 
     def _process_kf(self, kfid, seq, pyr, img_right, under_pressure: bool,
                     fold_kfs=()):
-        if not self.map.kf_valid[kfid] or int(self.map.kf_seq[kfid]) != seq:
+        with self.map_lock:
+            if not self.map.kf_valid[kfid] \
+                    or int(self.map.kf_seq[kfid]) != seq:
+                with self._pending_cv:
+                    self._unmapped = max(0, self._unmapped - 1)
+                    self._pending_cv.notify_all()
+                return   # culled (and possibly recycled) while queued
+            self.mapper.process_keyframe(kfid, self.frontend.frame, pyr,
+                                         img_right, lock=self.map_lock)
             with self._pending_cv:
                 self._unmapped = max(0, self._unmapped - 1)
                 self._pending_cv.notify_all()
-            return   # culled (and possibly recycled) while queued
-        self.mapper.process_keyframe(kfid, self.frontend.frame, pyr,
-                                     img_right, lock=self.map_lock)
-        with self._pending_cv:
-            self._unmapped = max(0, self._unmapped - 1)
-            self._pending_cv.notify_all()
-        if self.cfg.do_track_localmap and not under_pressure:
-            self.mapper.match_to_local_map(kfid, lock=self.map_lock)
-        if self.cfg.slam_mode:
-            T_kf_pre = self.map.kf_poses[kfid].copy()
-            self.estimator.local_ba(kfid, lock=self.map_lock,
-                                    extra_window=fold_kfs)
-            with self.map_lock:
-                self.estimator.map_filtering(kfid)
-                self._correct_front_end(kfid, seq, T_kf_pre)
+            if self.cfg.do_track_localmap and not under_pressure:
+                self.mapper.match_to_local_map(kfid, lock=self.map_lock)
+            if self.cfg.slam_mode:
+                T_kf_pre = self.map.kf_poses[kfid].copy()
+                self.estimator.local_ba(kfid, lock=self.map_lock,
+                                        extra_window=fold_kfs)
+                with self.map_lock:
+                    self.estimator.map_filtering(kfid)
+                    self._correct_front_end(kfid, seq, T_kf_pre)
         if self.loop_closer is not None and not under_pressure:
             # the lock is passed DOWN, not held here: the closer holds it
             # only for the index query/add and the closure application —

@@ -56,33 +56,36 @@ def reduction_bytes(Kw: int) -> int:
     return 8 * (Kw * 36 + Kw * 6 + Kw * Kw * 36 + Kw * 6 + 2)
 
 
-# an estimate, not a measurement: the cycles one Gauss-Newton step of one
-# keypoint takes on an SM, the steps of a keypoint being sequential,
-# summed from guessed latencies of the window's bilinear samples from
-# shared memory at the step's flow (~30), the products (~10), a cross-lane
-# sum of two values over 81 pixels (5 shuffle levels, ~25 each) and the
-# 2x2 update with its convergence test (~35)
-KLT_CHAIN_CYCLES = 200
+# the cycles one Gauss-Newton step of one keypoint takes in
+# csrc/klt_track.cu, the steps of a keypoint being sequential: measured on
+# an NVIDIA H100 80GB HBM3 at its 700 W limit by chip_smoke.py's
+# klt_step_latency (one keypoint, iters 1 against 30: 446 ns a step, at
+# SM_CLOCK_HZ)
+KLT_CHAIN_CYCLES = 884
 
 
 def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
-                 margin: int = 5):
-    """The least time of one ``fb_klt_track`` call (``entry()``'s): 4
-    forward levels and the backward base level, ``iters`` steps each.
+                 margin: int = 5, back_levels: int = 1, steps=None):
+    """The least time of one KLT call: ``len(shapes)`` forward levels and
+    ``back_levels`` backward ones (``fb_klt_track``; 0 for ``klt_track``),
+    ``entry()``'s call by default.
 
     - f32 operations per keypoint and level pass: the (win+2)² template
-      and (win+2·margin)² search patches sampled bilinearly (8 a pixel),
-      the gradients and the 2x2 gradient matrix (10 a window pixel); per
+      sampled bilinearly (8 a pixel), the gradients and the 2x2 gradient
+      matrix (10 a window pixel); the (win+2·margin)² search patch sits at
+      an integer offset and is copied, so it counts as bytes only; per
       step the window resampled (8), the difference (1) and the two sums
-      (4) over win² pixels, and the 12 of the step;
-    - bytes: the pixels the patches touch (each patch's footprint one
+      (4) over win² pixels, and the 12 of the step. ``steps``, the LK
+      steps each keypoint took over all its passes (the kernel's count),
+      counts what the call's data needed; without it every pass takes
+      ``iters``;
+    - bytes: the pixels the patches touch (the template's footprint one
       pixel wider for the bilinear taps, the union over keypoints, the
       patches placed at the keypoints), 4 B each, read once; keypoints
       and priors in, positions and status out;
-    - an estimate of the dependent chain: a keypoint's steps are
-      sequential, so a one-kernel KLT takes level passes x iters x the
-      cycles of one step at the SM clock, with ``KLT_CHAIN_CYCLES`` (an
-      estimate, not measured) for those cycles.
+    - the dependent chain: a keypoint's steps are sequential, so a
+      one-kernel KLT takes at least the most steps of one keypoint x
+      ``KLT_CHAIN_CYCLES`` at the SM clock.
     Returns ops, bytes, bound_ms (the larger of the first two, over the
     f32 and HBM rates), bound_by and chain_estimate_ms."""
     kps = np.asarray(kps, np.float64)
@@ -94,23 +97,29 @@ def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
         H, W = shapes[lvl]
         m = touched.setdefault((img, lvl), np.zeros((H, W), bool))
         for x, y in np.floor(top_left).astype(int):
-            m[max(y, 0):max(y + P + 1, 0), max(x, 0):max(x + P + 1, 0)] = \
-                True
+            m[max(y, 0):max(y + P, 0), max(x, 0):max(x + P, 0)] = True
 
     for lvl in range(len(shapes)):
         k = kps / 2.0 ** lvl
-        mark("prev", lvl, k - (r + 1), T)
+        mark("prev", lvl, k - (r + 1), T + 1)
         mark("cur", lvl, k - r - margin, S)
-    mark("cur", 0, kps - (r + 1), T)        # the backward pass
-    mark("prev", 0, kps - r - margin, S)
-    passes = len(shapes) + 1
+    for lvl in range(back_levels):           # the backward pass
+        k = kps / 2.0 ** lvl
+        mark("cur", lvl, k - (r + 1), T + 1)
+        mark("prev", lvl, k - r - margin, S)
+    passes = len(shapes) + back_levels
+    if steps is None:
+        n_steps, most = n * passes * iters, passes * iters
+    else:
+        steps = np.asarray(steps, np.int64)
+        n_steps, most = int(steps.sum()), int(steps.max(initial=0))
     px = int(sum(int(m.sum()) for m in touched.values()))
     nbytes = 4 * px + n * (8 + 8 + 1) + n * (8 + 1)
-    ops = n * passes * (T * T * 8 + win * win * 10 + S * S * 8
-                        + iters * (win * win * 13 + 12))
+    ops = (n * passes * (T * T * 8 + win * win * 10)
+           + n_steps * (win * win * 13 + 12))
     t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=ops, bytes=nbytes, pixels_read=px,
+    return dict(ops=ops, bytes=nbytes, pixels_read=px, steps=n_steps,
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                chain_estimate_ms=1e3 * passes * iters * KLT_CHAIN_CYCLES
+                chain_estimate_ms=1e3 * most * KLT_CHAIN_CYCLES
                 / SM_CLOCK_HZ)

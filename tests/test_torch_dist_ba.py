@@ -396,7 +396,7 @@ def test_chip_smoke_fb_klt_bound():
     b = chip_smoke.fb_klt_bound(kps, shapes)
     assert 256 * 11 * 11 <= b["pixels_read"] <= 2 * sum(
         h * w for h, w in shapes)
-    assert b["ops"] == 256 * 5 * (11 * 11 * 8 + 81 * 10 + 19 * 19 * 8
+    assert b["ops"] == 256 * 5 * (11 * 11 * 8 + 81 * 10
                                   + 30 * (81 * 13 + 12))
     assert b["chain_estimate_ms"] == pytest.approx(
         1e3 * 5 * 30 * chip_smoke.KLT_CHAIN_CYCLES / chip_smoke.SM_CLOCK_HZ)

@@ -65,6 +65,45 @@ def test_async_short_run_with_loop_closer(chained):
         _close(slam)
 
 
+def test_async_worker_holds_the_map_lock_through_a_keyframe():
+    # the worker maps a keyframe and runs its local BA under the map lock
+    # (taken again inside, as it is reentrant); the loop closer is entered
+    # without it, so its verification cascade never blocks the front end
+    seq = generate_sequence(n_frames=20, stereo=True, width=376, height=240,
+                            n_points=3000, seed=3, speed=0.06)
+    cfg = seq.make_config(max_keyframes=64, max_landmarks=8192,
+                          use_fast=False, use_singlescale_detector=True,
+                          max_dist=30, use_loop_closer=True,
+                          use_relocalizer=False, lc_recent_mask=1,
+                          pipelined_frontend=True, pipeline_depth=2)
+    slam = AsyncSlamManager(cfg, device="cpu")
+    held = {"map": [], "ba": [], "closer": []}
+
+    def watch(obj, name, key):
+        orig = getattr(obj, name)
+
+        def wrapped(*a, **k):
+            held[key].append(slam.map_lock._is_owned())
+            return orig(*a, **k)
+        setattr(obj, name, wrapped)
+
+    watch(slam.mapper, "process_keyframe", "map")
+    watch(slam.estimator, "local_ba", "ba")
+    watch(slam.loop_closer, "process_keyframe", "closer")
+    try:
+        _feed(slam, seq)
+        slam.flush()
+        assert slam.n_worker_errors == 0
+        assert held["map"] and held["ba"] and held["closer"], held
+        assert all(held["map"]) and all(held["ba"]), held
+        assert not any(held["closer"]), held
+        _, poses = slam.estimated_trajectory()
+        ate = ate_rmse(poses, seq.gt_poses, align_scale=False)
+        assert ate < 0.15, f"async ATE {ate:.3f} m"
+    finally:
+        _close(slam)
+
+
 def test_async_manager_requires_gpu_by_default(monkeypatch):
     cfg = generate_sequence(n_frames=2, width=96, height=64,
                             n_points=50).make_config()

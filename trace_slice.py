@@ -3,11 +3,22 @@
 
 Slices A and B: runs ``--warmup`` frames of the slice through
 ``ov2slam_torch``'s ``SlamManager``, then ``--frames`` more under
-``torch.profiler`` (CPU + CUDA activities), and prints one JSON line:
-wall time of the traced frames, the summed device time of their CUDA
-kernels, the device's busy share (kernel time over wall time; one stream,
-so kernels do not overlap), kernel launches per frame, and the kernels
-that take the most device time.
+``torch.profiler`` (CPU + CUDA activities), and prints one JSON line: wall
+time of the traced frames, the summed device time of their CUDA kernels,
+the device's busy share (kernel time over wall time; one stream, so
+kernels do not overlap), kernel launches per frame, the kernels that take
+the most device time, and launches and device ms per frame grouped two
+ways: by ``Profiler`` scope and by the port function that the models layer
+called (a function of ``ov2slam_torch``'s ops, core, geometry, solvers,
+loopclosure or mapping packages, the outermost one when they nest;
+"(models: <scope>)" for the models layer's own tensor ops). While traced,
+each scope and each such function, as the models modules hold it, runs
+inside a ``record_function`` range; each device event is charged to the
+ranges around the runtime call that launched it (hand kernels' ctypes
+launches included). The trace holds the device events of only some of the
+KLT kernel's launches, so its device time is missing from those figures;
+the line gives its launches per frame from the wrapper's counter beside
+the ones the trace holds.
 
 Slices E and F: runs ``chip_smoke.run_async_slice`` (``AsyncSlamManager``,
 the front end on the calling thread, keyframes on the ``kf-worker`` thread
@@ -23,7 +34,8 @@ waits of both threads (the in-flight frame's readback, the keyframe
 backpressure condition, the map lock) and the ``Profiler`` scopes are
 recorded beside the trace. The JSON line adds the device's idle share
 over the union of all streams, launches per frame by thread, kernels by
-stream, the longest idle gaps of the device with what each thread was
+stream, each thread's map-lock waits charged to the scopes open around
+them, the longest idle gaps of the device with what each thread was
 inside during each, and the traced run's own outcome (fps, ATE,
 keyframes, frames dropped): a window of a run that lost tracking does
 not describe the slice.
@@ -42,7 +54,7 @@ CG step, the kernels that take the most device time, the device's busy
 share, and the CUDA runtime calls by count (a synchronizing call in the
 CG loop shows here).
 
-    python3 trace_slice.py B --warmup 20 --frames 30
+    python3 trace_slice.py B --warmup 20 --frames 10
     python3 trace_slice.py E --warmup 60 --frames 8
     python3 trace_slice.py F --warmup 45 --frames 8
     python3 trace_slice.py I --frames 5 --shards 1 8
@@ -91,6 +103,7 @@ def main(argv) -> int:
     import chip_smoke
     from ov2slam_torch.io import synthetic
     from ov2slam_torch.models.slam import SlamManager
+    from ov2slam_torch.ops import klt
     from ov2slam_torch.utils import profiles
 
     seq, cfg = chip_smoke.make_slice(args.slice, synthetic, profiles)
@@ -107,15 +120,22 @@ def main(argv) -> int:
     for i in range(n0):
         step(i)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    klt_n0 = klt.klt_track.launches
+    with scoped_ranges() as scopes, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n0, n1):
             step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    klt_launches = klt.klt_track.launches - klt_n0
 
-    n_kernels, busy_us, top = kernel_table(prof.events(), args.top)
+    events = prof.events()
+    n_kernels, busy_us, top = kernel_table(events, args.top)
+    groups = kernel_groups(events, scopes)
+    klt_traced = sum(1 for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and chip_smoke.KLT_KERNEL_SYMBOL in e.name)
     print(json.dumps(dict(
         slice=args.slice, device=torch.cuda.get_device_name(0),
         frames=args.frames, keyframes=int(slam.map._kf_seq_counter),
@@ -124,8 +144,136 @@ def main(argv) -> int:
         kernel_launches=n_kernels,
         launches_per_frame=n_kernels / args.frames,
         top_kernels=[dict(name=k[:80], launches=n, device_ms=t * 1e-3)
-                     for k, n, t in top])), flush=True)
+                     for k, n, t in top],
+        **{f"per_frame_by_{how}": per_frame(g, args.frames)
+           for how, g in groups.items()},
+        klt_kernel=dict(
+            launches_per_frame=klt_launches / args.frames,
+            traced_per_frame=klt_traced / args.frames,
+            note="the trace holds the device events of only some of the "
+                 "KLT kernel's launches (its wrapper's counter gives the "
+                 "launches): its device time is missing from the figures "
+                 "above; chip_smoke.py's [kernels] klt_track lines time "
+                 "it with CUDA events"))), flush=True)
     return 0
+
+
+# the packages whose functions the models layer calls: a kernel launched
+# under one is charged to the outermost such function
+LAYERS = ("ops", "core", "geometry", "solvers", "loopclosure", "mapping")
+MODELS = ("frontend_step", "frontend", "mapper_step", "mapper", "estimator",
+          "relocalizer", "slam", "pipeline")
+
+
+class scoped_ranges:
+    """While entered: every ``Profiler`` scope is also a
+    ``torch.profiler.record_function`` range, and every function of a
+    ``LAYERS`` package that a ``MODELS`` module holds runs inside a range
+    ``fn <package/module.py>::<name>``. Yields the set of scope names
+    seen."""
+
+    def __enter__(self):
+        import importlib
+        import inspect
+        import threading
+
+        from torch.profiler import record_function
+
+        from ov2slam_torch.utils.profiler import Profiler
+
+        self.scopes = set()
+        self._open = {}
+        self._orig = Profiler.start, Profiler.stop
+        orig_start, orig_stop = self._orig
+
+        def start(prof, name):
+            r = record_function(name)
+            r.__enter__()
+            self._open[(threading.get_ident(), name)] = r
+            self.scopes.add(name)
+            return orig_start(prof, name)
+
+        def stop(prof, name, sync=None):
+            out = orig_stop(prof, name, sync)
+            r = self._open.pop((threading.get_ident(), name), None)
+            if r is not None:
+                r.__exit__(None, None, None)
+            return out
+
+        Profiler.start, Profiler.stop = start, stop
+        self._patched = []
+        for m in MODELS:
+            mod = importlib.import_module(f"ov2slam_torch.models.{m}")
+            for name, fn in list(vars(mod).items()):
+                parts = getattr(fn, "__module__", "").split(".")
+                if (inspect.isfunction(fn) and parts[0] == "ov2slam_torch"
+                        and parts[1:2] and parts[1] in LAYERS):
+                    label = "/".join(parts[1:]) + f".py::{fn.__name__}"
+                    setattr(mod, name, _ranged(fn, "fn " + label))
+                    self._patched.append((mod, name, fn))
+        return self.scopes
+
+    def __exit__(self, *exc):
+        from ov2slam_torch.utils.profiler import Profiler
+
+        Profiler.start, Profiler.stop = self._orig
+        for mod, name, fn in self._patched:
+            setattr(mod, name, fn)
+
+
+def _ranged(fn, label):
+    """``fn`` inside a ``record_function`` range ``label``."""
+    from torch.profiler import record_function
+
+    def ranged(*a, **k):
+        with record_function(label):
+            return fn(*a, **k)
+    return ranged
+
+
+# the CUDA runtime calls that put work on a stream
+LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+            "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def kernel_groups(events, scopes):
+    """Kernel launches and device µs grouped by ``Profiler`` scope (the
+    innermost one open at the launch, "(none)" outside every scope) and by
+    port function (see the module docstring). Each device event is joined
+    to the runtime call that launched it (same correlation id), and that
+    call's enclosing CPU events name the groups; device events whose call
+    the trace lacks are "(unattributed)"."""
+    import torch
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    calls = {e.id: e for e in events
+             if e.device_type == cpu and e.name in LAUNCHES}
+    out = {"scope": {}, "function": {}}
+    for d in events:
+        if d.device_type != cuda or getattr(d, "is_user_annotation", False):
+            continue
+        scope = fn = None
+        p = calls.get(d.id)
+        if p is None:
+            scope = fn = "(unattributed)"
+        while p is not None:
+            if scope is None and p.name in scopes:
+                scope = p.name
+            if p.name.startswith("fn "):
+                fn = p.name[3:]
+            p = p.cpu_parent
+        scope = scope or "(none)"
+        for how, key in (("scope", scope),
+                         ("function", fn or f"(models: {scope})")):
+            c, t = out[how].get(key, (0, 0.0))
+            out[how][key] = (c + 1, t + d.time_range.elapsed_us())
+    return out
+
+
+def per_frame(group, frames: int):
+    """{key: {launches, device_ms}} per frame, by device time."""
+    return {k: dict(launches=n / frames, device_ms=1e-3 * t / frames)
+            for k, (n, t) in sorted(group.items(), key=lambda kv: -kv[1][1])}
 
 
 def kernel_table(events, top: int):
@@ -136,7 +284,8 @@ def kernel_table(events, top: int):
     # kernels appear either as CUDA-typed events or attached to the CPU
     # ops that launched them, depending on the profiler build
     kernels = [(e.name, e.time_range.elapsed_us()) for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         kernels = [(k.name, k.duration) for e in events for k in e.kernels]
     by_name = {}
@@ -500,6 +649,18 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
         k = f"{who}: {lab}"
         n, t = scopes.get(k, (0, 0.0))
         scopes[k] = (n + 1, t + _overlap(a, b, w0, w1))
+    # each thread's map-lock waits charged to the scopes open around them
+    lock_in = {}
+    waits = [(who, a, b) for who, lab, a, b in rows
+             if lab == "wait: map lock"]
+    for who, lab, a, b in rows:
+        if lab.startswith("wait: ") or lab == "process_frame":
+            continue
+        t = sum(_overlap(wa, wb, max(a, w0), min(b, w1))
+                for ww, wa, wb in waits if ww == who)
+        if t > 0:
+            k = f"{who}: {lab}"
+            lock_in[k] = lock_in.get(k, 0.0) + t
     top_k = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     return dict(
         slice=name, device=torch.cuda.get_device_name(0), frames=frames,
@@ -509,6 +670,8 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
         launches_per_frame={k: v / frames for k, v in launches.items()},
         thread_time_ms={k: dict(n=n, ms=round(t * 1e-3, 3))
                         for k, (n, t) in sorted(scopes.items())},
+        map_lock_wait_in_scope_ms={k: round(t * 1e-3, 3)
+                                   for k, t in sorted(lock_in.items())},
         longest_idle_gaps=[dict(start_ms=round((g0 - w0) * 1e-3, 3),
                                 ms=round((g1 - g0) * 1e-3, 3),
                                 threads=inside(g0, g1))
