@@ -126,7 +126,8 @@ import time
 # this import fails and the script exits non-zero
 from ov2slam_torch.roofline import (  # noqa: F401
     F32_FLOP_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S, KLT_CHAIN_CYCLES,
-    SM_CLOCK_HZ, fb_klt_bound, nvidia_smi_line, reduction_bytes)
+    KLT_SETUP_CYCLES, SM_CLOCK_HZ, fb_klt_bound, nvidia_smi_line,
+    reduction_bytes)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -879,6 +880,58 @@ class DispatchSyncCounter:
                     sites=dict(self.sites.most_common(8)))
 
 
+class LockWaits:
+    """The asynchronous manager's map lock with each thread's waits to
+    acquire it summed (seconds by thread name), and those inside the loop
+    closer's place query (``query_keyframe``, which holds the
+    ``4.LC_QueryIndex`` scope) counted apart: ``query`` is [calls,
+    seconds waited]. Everything else goes to the lock."""
+
+    def __init__(self, slam):
+        import collections
+
+        self._lock = slam.map_lock
+        self.wait_s = collections.Counter()
+        self.query = [0, 0.0]
+        slam.map_lock = self
+        if slam.loop_closer is not None:
+            orig = slam.loop_closer.query_keyframe
+
+            def query_keyframe(*a, **k):
+                import threading
+
+                who = threading.current_thread().name
+                w0 = self.wait_s[who]
+                try:
+                    return orig(*a, **k)
+                finally:
+                    self.query[0] += 1
+                    self.query[1] += self.wait_s[who] - w0
+
+            slam.loop_closer.query_keyframe = query_keyframe
+
+    def acquire(self):
+        import threading
+
+        t0 = time.perf_counter()
+        got = self._lock.acquire()
+        self.wait_s[threading.current_thread().name] += (
+            time.perf_counter() - t0)
+        return got
+
+    def release(self):
+        self._lock.release()
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+
+    def __getattr__(self, name):
+        return getattr(self._lock, name)
+
+
 def run_async_slice(name: str, dev, seq=None):
     """Slice E (``seq``: slice B's rendered sequence, else rendered here)
     or F through ``AsyncSlamManager``; returns the slice's figures."""
@@ -908,6 +961,7 @@ def run_async_slice(name: str, dev, seq=None):
     t_render = time.perf_counter() - t0
     slam = AsyncSlamManager(cfg, device=dev)
     worker_stream = getattr(slam.worker_stream, "cuda_stream", None)
+    waits = LockWaits(slam)
     prof = Profiler.instance()
     prof.reset()
     # counts cover exactly this slice's run of the main path
@@ -969,10 +1023,17 @@ def run_async_slice(name: str, dev, seq=None):
                                                    worker_stream), 0),
                scorer_plain_runs_on_cuda=plain_cuda,
                sync_debug=syncs.result(), max_kps=cfg.max_kps,
-               lc_recent_mask=cfg.lc_recent_mask, **klt)
+               lc_recent_mask=cfg.lc_recent_mask,
+               map_lock_wait_ms={k: 1e3 * v for k, v in
+                                 sorted(waits.wait_s.items())},
+               map_lock_handoffs=slam.map_lock.handoffs, **klt)
     if slam.loop_closer is not None:
+        q = prof.stats().get("4.LC_QueryIndex", dict(n=0, mean_ms=0.0))
         res.update(index_rows=len(slam.loop_closer.index.kf_ids),
-                   index_cube_bytes=slam.loop_closer.index._cube.numel())
+                   index_cube_bytes=slam.loop_closer.index._cube.numel(),
+                   lc_query_index_ms=q["mean_ms"], lc_queries=q["n"],
+                   lc_query_lock_wait_ms=(1e3 * waits.query[1]
+                                          / max(waits.query[0], 1)))
     if paced is not None:
         n_dropped, pace_fps, med = paced
         res.update(dropped=n_dropped, paced_frames=len(frames) - SLICE_F_WARM,
@@ -1012,6 +1073,16 @@ def gate_async(r, b=None) -> None:
         if r["worker_scorer_launches"] < 1:
             fail("slice E: no scorer launch from the worker's thread and "
                  "stream")
+        print(f"[slice E] loop closer's place query: "
+              f"{r['lc_query_index_ms']:.3f} ms per keyframe in "
+              f"4.LC_QueryIndex ({r['lc_queries']} queries), of which "
+              f"{r['lc_query_lock_wait_ms']:.3f} ms waited for the map "
+              f"lock; map-lock waits by thread (ms) "
+              f"{r['map_lock_wait_ms']}, {r['map_lock_handoffs']} "
+              "hand-offs at the worker's yield points", flush=True)
+        gate("E", "map-lock wait inside the place query (share of it)",
+             r["lc_query_lock_wait_ms"],
+             0.1 * max(r["lc_query_index_ms"], 1e-9))
         print(f"[slice E] async: {r['fps']:.4f} fps, ATE {r['ate_m']} m "
               f"(gate {SLICE_E_MAX_ATE}; the JAX package's synchronous "
               f"manager with the same chained front end: "
@@ -1937,8 +2008,9 @@ def time_klt(s, runs: int = 20, plain_runs: int = 3):
 
 
 def klt_fixture_sets(dev):
-    """The test fixtures as calls on the card: the pair (klt and fb), the
-    flat block (fb) and the split-overflow case at n_sub 8 and 64."""
+    """The test fixtures as calls on the card: the pair (klt and fb, and
+    fb at two other windows and margins), the flat block (fb) and the
+    split-overflow case at n_sub 8 and 64."""
     import torch
 
     from ov2slam_torch.core.image import build_pyramid
@@ -1955,6 +2027,12 @@ def klt_fixture_sets(dev):
                   t(ok)),
            KltSet("fixture pair, fb_klt_track", "fb", pp, pc, t(kps),
                   t(kps), t(ok))]
+    # other windows and margins: win 7 takes the kernel's instantiation
+    # for 3 window pixels a lane, win 11 the one for 8
+    for win, margin in ((7, 5), (11, 7)):
+        out.append(KltSet(f"fixture pair, fb_klt_track, win {win}, margin "
+                          f"{margin}", "fb", pp, pc, t(kps), t(kps), t(ok),
+                          win=win, margin=margin))
     fa, fb, fk, fp = klt_flat_case()
     out.append(KltSet("fixture flat block, fb_klt_track", "fb", pyr(fa, 3),
                       pyr(fb, 3), t(fk), t(fp),
@@ -2012,11 +2090,14 @@ def klt_slice_sets(seq, cfg, dev, frame: int = 40):
 
 
 def klt_step_latency(dev, runs: int = 200):
-    """One LK step's latency on the card: one keypoint of ``entry()``'s
-    noise images that takes every step without converging, tracked at the
-    base level with ``iters`` 1 and 30, each launch's device time from
-    ``runs`` launches queued behind a sleep; the step is the difference
-    over 29 steps. Returns ns and SM cycles (at ``SM_CLOCK_HZ``) a step."""
+    """One LK step's latency and one level's setup on the card: one
+    keypoint of ``entry()``'s noise images that takes every step without
+    converging, tracked at the base level with ``iters`` 0, 1 and 30, each
+    launch's device time from ``runs`` launches queued behind a sleep. The
+    step is the difference of iters 30 and 1 over 29 steps; the setup
+    (what a level that steps adds before its first step: the correlation
+    tables) is iters 1 against 0, less one step. Returns ns and SM cycles
+    (at ``SM_CLOCK_HZ``) of each."""
     import numpy as np
     import torch
 
@@ -2036,15 +2117,18 @@ def klt_step_latency(dev, runs: int = 200):
     one, v1 = k[full[:1]].contiguous(), v[:1].contiguous()
     st1 = torch.zeros(1, dtype=torch.int32, device=dev)
     t = {}
-    for it in (1, 30):
+    for it in (0, 1, 30):
         klt.launch(pp, pc, one, one, v1, 0, iters=it, steps=st1)
         if int(st1.item()) != it:
             fail(f"klt step latency: {int(st1.item())} steps of {it}")
         t[it] = time_cuda_queued(
             lambda: klt.launch(pp, pc, one, one, v1, 0, iters=it), runs)
     ns = 1e6 * (t[30] - t[1]) / 29
-    return dict(launch_ms_iters1=t[1], launch_ms_iters30=t[30],
-                step_ns=ns, step_cycles=ns * 1e-9 * SM_CLOCK_HZ,
+    setup_ns = 1e6 * (t[1] - t[0]) - ns
+    return dict(launch_ms_iters0=t[0], launch_ms_iters1=t[1],
+                launch_ms_iters30=t[30], step_ns=ns,
+                step_cycles=ns * 1e-9 * SM_CLOCK_HZ, setup_ns=setup_ns,
+                setup_cycles=setup_ns * 1e-9 * SM_CLOCK_HZ,
                 keypoint=int(full[0]))
 
 
@@ -2072,8 +2156,12 @@ def phase_klt(dev, seq_b, cfg_b):
     lat = klt_step_latency(dev)
     print(f"[kernels] klt_track one LK step: {lat['step_ns']:.1f} ns "
           f"({lat['step_cycles']:.0f} cycles at {SM_CLOCK_HZ / 1e9} GHz; "
-          f"launch {lat['launch_ms_iters1']:.5f} ms at iters 1, "
-          f"{lat['launch_ms_iters30']:.5f} ms at iters 30); phase "
+          f"roofline.KLT_CHAIN_CYCLES {KLT_CHAIN_CYCLES}); one level's "
+          f"setup: {lat['setup_ns']:.1f} ns ({lat['setup_cycles']:.0f} "
+          f"cycles; roofline.KLT_SETUP_CYCLES {KLT_SETUP_CYCLES}); launch "
+          f"{lat['launch_ms_iters0']:.5f} ms at iters 0, "
+          f"{lat['launch_ms_iters1']:.5f} ms at iters 1, "
+          f"{lat['launch_ms_iters30']:.5f} ms at iters 30; phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return rows, err, lat
 

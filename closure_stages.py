@@ -96,9 +96,10 @@ def main(argv) -> int:
             iters_l2=3 if cfg_.apply_l2_after_robust else 0,
             gt_pos=gt, seed=args.seeds[0], device=args.device)
 
-    def traced_solve(prob, rho, ray, obs_valid, params, cfg_, iters=None):
+    def traced_solve(prob, rho, ray, obs_valid, params, cfg_, iters=None,
+                     between_iters=None):
         out = solve_problem(prob, rho, ray, obs_valid, params, cfg_,
-                            iters=iters)
+                            iters=iters, between_iters=between_iters)
         if in_loose[0] and args.dump and not dumped:
             dump_problem(prob, rho, ray, obs_valid, params, cfg_, iters)
             dumped.append(args.dump)

@@ -51,12 +51,17 @@ the 752x480 loop the port's smoke test drives (slice E) and on the tests'
   paced slice dropped 9-13 of 80 frames against 0-3 without it;
 - a frame waits until every queued keyframe is mapped (see
   ``process_frame``);
-- the worker holds the map lock through a keyframe's mapping and local
-  BA, so that its host work never interleaves with a front-end frame's:
-  on a GPU both are launch-bound Python on one interpreter, and
-  interleaved they took longer than in turn (the paced slice dropped
-  9-19 of 80 frames against 0-3 held); their device work still overlaps
-  on the worker's stream. The loop closer's cascade stays outside it;
+- the worker holds the map lock (a :class:`TurnLock`) through a
+  keyframe's mapping, local BA and place query, so that its host work
+  never interleaves with a front-end frame's: on a GPU both are
+  launch-bound Python on one interpreter, and interleaved they took
+  longer than in turn (the paced slice dropped 9-19 of 80 frames against
+  0-3 held); their device work still overlaps on the worker's stream.
+  The threads take turns: after the mapping and after every LM iteration
+  the worker hands the lock to a frame that waits for it and takes it
+  back once that frame is done, so no frame waits through a whole local
+  BA (hundreds of ms on a CPU). The loop closer's cascade stays outside
+  the lock;
 - a loop closure's correction reaches the front end as BA's does.
 """
 
@@ -76,6 +81,84 @@ from ..utils import lie_np
 from .slam import SlamManager
 
 
+class TurnLock:
+    """The asynchronous manager's map lock: re-entrant, and its holder can
+    hand it to a thread that waits for it at a point of its choosing
+    (:meth:`yield_turn`), taking it back as soon as that thread lets go.
+    A bare ``RLock`` released and taken again at once does not hand over:
+    the waiter is woken, but the releasing thread runs on and wins the
+    lock again. One thread (the worker) yields; any thread may wait."""
+
+    def __init__(self):
+        self._cv = threading.Condition(threading.Lock())
+        self._owner = None        # thread ident
+        self._depth = 0
+        self._waiting = 0         # threads blocked in acquire
+        self._grants = 0          # acquisitions, re-entries not counted
+        self._reclaim = None      # the grant a yielder takes it back after
+        self.handoffs = 0
+
+    def acquire(self) -> bool:
+        me = threading.get_ident()
+        with self._cv:
+            if self._owner == me:
+                self._depth += 1
+                return True
+            self._waiting += 1
+            try:
+                while self._owner is not None or (
+                        self._reclaim is not None
+                        and self._grants >= self._reclaim):
+                    self._cv.wait()
+            finally:
+                self._waiting -= 1
+            self._owner, self._depth = me, 1
+            self._grants += 1
+            return True
+
+    def release(self) -> None:
+        with self._cv:
+            if self._owner != threading.get_ident():
+                raise RuntimeError("TurnLock: release by a thread that "
+                                   "does not hold it")
+            self._depth -= 1
+            if self._depth == 0:
+                self._owner = None
+                self._cv.notify_all()
+
+    def owned(self) -> bool:
+        """Whether the calling thread holds the lock."""
+        return self._owner == threading.get_ident()
+
+    def yield_turn(self) -> bool:
+        """Called by the holder: if another thread waits for the lock,
+        hand it over (whatever the holder's depth), wait until that thread
+        has taken and released it, and take it back at the same depth.
+        Returns whether it handed over."""
+        me = threading.get_ident()
+        with self._cv:
+            if self._owner != me:
+                raise RuntimeError("TurnLock: yield by a thread that does "
+                                   "not hold it")
+            if self._waiting == 0:
+                return False
+            depth, self._owner, self._depth = self._depth, None, 0
+            self._reclaim = self._grants + 1
+            self._cv.notify_all()
+            while self._owner is not None or self._grants < self._reclaim:
+                self._cv.wait()
+            self._reclaim = None
+            self._owner, self._depth = me, depth
+            self.handoffs += 1
+            return True
+
+    def __enter__(self):
+        return self.acquire()
+
+    def __exit__(self, *exc):
+        self.release()
+
+
 class AsyncSlamManager(SlamManager):
     """SlamManager with keyframe processing on a worker thread (and, on a
     GPU, a worker CUDA stream). ``close()`` joins the worker."""
@@ -83,7 +166,7 @@ class AsyncSlamManager(SlamManager):
     def __init__(self, cfg, use_loop_closer: Optional[bool] = None,
                  queue_size: int = 64, device=None, seed: int = 42):
         super().__init__(cfg, use_loop_closer, device=device, seed=seed)
-        self.map_lock = threading.RLock()
+        self.map_lock = TurnLock()
         self._kf_queue: "queue.Queue" = queue.Queue(maxsize=queue_size)
         self._stop = threading.Event()
         # in-flight work count (queued + being processed): flush() waits
@@ -265,6 +348,7 @@ class AsyncSlamManager(SlamManager):
 
     def _process_kf(self, kfid, seq, pyr, img_right, under_pressure: bool,
                     fold_kfs=()):
+        found = None
         with self.map_lock:
             if not self.map.kf_valid[kfid] \
                     or int(self.map.kf_seq[kfid]) != seq:
@@ -277,26 +361,26 @@ class AsyncSlamManager(SlamManager):
             with self._pending_cv:
                 self._unmapped = max(0, self._unmapped - 1)
                 self._pending_cv.notify_all()
+            self.map_lock.yield_turn()
             if self.cfg.do_track_localmap and not under_pressure:
                 self.mapper.match_to_local_map(kfid, lock=self.map_lock)
             if self.cfg.slam_mode:
                 T_kf_pre = self.map.kf_poses[kfid].copy()
                 self.estimator.local_ba(kfid, lock=self.map_lock,
-                                        extra_window=fold_kfs)
-                with self.map_lock:
-                    self.estimator.map_filtering(kfid)
-                    self._correct_front_end(kfid, seq, T_kf_pre)
-        if self.loop_closer is not None and not under_pressure:
-            # the lock is passed DOWN, not held here: the closer holds it
-            # only for the index query/add and the closure application —
-            # the verification cascade runs lock-free so paced arrival
-            # keeps tracking
-            T_kf_pre = self.map.kf_poses[kfid].copy()
-            if self.loop_closer.process_keyframe(
-                    kfid, img=pyr[0] if pyr is not None else None,
-                    lock=self.map_lock):
-                with self.map_lock:
-                    self._correct_front_end(kfid, seq, T_kf_pre)
+                                        extra_window=fold_kfs,
+                                        between_iters=self.map_lock.yield_turn)
+                self.estimator.map_filtering(kfid)
+                self._correct_front_end(kfid, seq, T_kf_pre)
+            if self.loop_closer is not None and not under_pressure:
+                # the place query and add run here, still under the lock;
+                # the verification cascade below runs without it
+                T_kf_pre = self.map.kf_poses[kfid].copy()
+                found = self.loop_closer.query_keyframe(
+                    kfid, img=pyr[0] if pyr is not None else None)
+        if found is not None and self.loop_closer.close_candidate(
+                found, lock=self.map_lock):
+            with self.map_lock:
+                self._correct_front_end(kfid, seq, T_kf_pre)
 
     def _correct_front_end(self, kfid, seq, T_kf_pre):
         """Propagate the correction that BA or a loop closure made to

@@ -56,12 +56,16 @@ def reduction_bytes(Kw: int) -> int:
     return 8 * (Kw * 36 + Kw * 6 + Kw * Kw * 36 + Kw * 6 + 2)
 
 
-# the cycles one Gauss-Newton step of one keypoint takes in
-# csrc/klt_track.cu, the steps of a keypoint being sequential: measured on
-# an NVIDIA H100 80GB HBM3 at its 700 W limit by chip_smoke.py's
-# klt_step_latency (one keypoint, iters 1 against 30: 446 ns a step, at
-# SM_CLOCK_HZ)
-KLT_CHAIN_CYCLES = 884
+# the dependent chain of one keypoint in csrc/klt_track.cu, in SM cycles:
+# one Gauss-Newton step (the steps of a keypoint are sequential), and the
+# per-level setup that a level which steps adds before its first step,
+# both measured on an NVIDIA H100 80GB HBM3 at its 700 W limit by
+# chip_smoke.py's klt_step_latency (one keypoint: iters 30 against 1 for
+# the step, iters 1 against 0, less one step, for the setup), at
+# SM_CLOCK_HZ: 635 and 27-37 cycles. The kernel before cp.async patches
+# and per-window instantiations took 883-893 cycles a step.
+KLT_CHAIN_CYCLES = 635
+KLT_SETUP_CYCLES = 32
 
 
 def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
@@ -83,8 +87,9 @@ def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
       pixel wider for the bilinear taps, the union over keypoints, the
       patches placed at the keypoints), 4 B each, read once; keypoints
       and priors in, positions and status out;
-    - the dependent chain: a keypoint's steps are sequential, so a
-      one-kernel KLT takes at least the most steps of one keypoint x
+    - the dependent chain: a keypoint's levels and steps are sequential,
+      so a one-kernel KLT takes at least, for the keypoint with the most
+      steps, its passes x ``KLT_SETUP_CYCLES`` plus its steps x
       ``KLT_CHAIN_CYCLES`` at the SM clock.
     Returns ops, bytes, bound_ms (the larger of the first two, over the
     f32 and HBM rates), bound_by and chain_estimate_ms."""
@@ -121,5 +126,6 @@ def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
     return dict(ops=ops, bytes=nbytes, pixels_read=px, steps=n_steps,
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
-                chain_estimate_ms=1e3 * most * KLT_CHAIN_CYCLES
+                chain_estimate_ms=1e3 * (passes * KLT_SETUP_CYCLES
+                                         + most * KLT_CHAIN_CYCLES)
                 / SM_CLOCK_HZ)

@@ -262,6 +262,7 @@ def ba_solve(
     robust_th: float = 5.9915,
     iters: int = 5,
     lam0: float = 1e-3,
+    between_iters=None,
 ):
     """Windowed bundle adjustment (local, loose and full BA).
 
@@ -274,6 +275,9 @@ def ba_solve(
       robust_th: Huber threshold on chi2 (5.9915 = 95% 2-DoF,
         `optimizer.cpp:47-49`); 0 disables (pure L2 pass).
       iters: LM iterations (reference budget: 5, `optimizer.cpp:460`).
+      between_iters: called with no arguments after each LM iteration
+        (the asynchronous worker hands the map lock to a waiting frame
+        there).
 
     Returns (new_kf_poses_wc (Kw, 7), new_lm_pos (Lw, 3),
     obs_inlier (O,) bool — chi2 <= robust gate & positive depth,
@@ -316,6 +320,8 @@ def ba_solve(
         points = torch.where(accept, p_new, points)
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-6),
                           torch.clamp(lam * 4.0, max=1e2))
+        if between_iters is not None:
+            between_iters()
 
     # final outlier classification (chi2 gate + positive depth,
     # `optimizer.cpp:492-592`)
@@ -337,13 +343,16 @@ def ba_solve_two_pass(
     robust_th: float = 5.9915,
     iters_robust: int = 5,
     iters_l2: int = 3,
+    between_iters=None,
 ):
     """Robust pass → chi2 outlier removal → L2 refinement on inliers
     (`apply_l2_after_robust`, `optimizer.cpp:600-627`)."""
     poses, points, inlier, _ = ba_solve(
         kf_poses_wc, kf_fixed, lm_pos, obs_kf, obs_lm, obs_px, obs_cam,
-        obs_valid, params, robust_th=robust_th, iters=iters_robust)
+        obs_valid, params, robust_th=robust_th, iters=iters_robust,
+        between_iters=between_iters)
     poses, points, inlier2, cost = ba_solve(
         poses, kf_fixed, points, obs_kf, obs_lm, obs_px, obs_cam,
-        obs_valid & inlier, params, robust_th=0.0, iters=iters_l2)
+        obs_valid & inlier, params, robust_th=0.0, iters=iters_l2,
+        between_iters=between_iters)
     return poses, points, inlier & inlier2, cost

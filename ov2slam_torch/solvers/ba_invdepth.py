@@ -332,6 +332,7 @@ def ba_solve_invdepth(
     robust_th: float = 5.9915,
     iters: int = 5,
     lam0: float = 1e-3,
+    between_iters=None,
 ):
     """Anchored inverse-depth windowed BA.
 
@@ -342,6 +343,7 @@ def ba_solve_invdepth(
       lm_anchor: (Lw,) int window index of the anchor KF.
       lm_ray: (Lw, 2) anchor normalized ray (mx, my) with mz = 1.
       obs_*: padded observation table (index -1 = padding).
+      between_iters: called with no arguments after each LM iteration.
 
     Returns (new_kf_poses_wc, new_lm_pos (Lw,3) world positions,
              new_lm_rho (Lw,), obs_inlier (O,), final_cost).
@@ -386,6 +388,8 @@ def ba_solve_invdepth(
         rho = torch.where(accept, rho_new, rho)
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=1e-6),
                           torch.clamp(lam * 4.0, max=1e2))
+        if between_iters is not None:
+            between_iters()
 
     r, _, _, _, depth_ok = _residuals_jacobians_inv(
         T_cw, rho, anchor_c, lm_ray, obs_kf_c, obs_lm_c, obs_px, obs_cam,
@@ -407,14 +411,15 @@ def ba_solve_invdepth_two_pass(
     robust_th: float = 5.9915,
     iters_robust: int = 5,
     iters_l2: int = 3,
+    between_iters=None,
 ):
     """Robust pass -> chi2 cull -> L2 refinement (`optimizer.cpp:600-627`)."""
     poses, _, rho, inlier, _ = ba_solve_invdepth(
         kf_poses_wc, kf_fixed, lm_rho, lm_anchor, lm_ray,
         obs_kf, obs_lm, obs_px, obs_cam, obs_valid, params,
-        robust_th=robust_th, iters=iters_robust)
+        robust_th=robust_th, iters=iters_robust, between_iters=between_iters)
     poses, pos, rho, inlier2, cost = ba_solve_invdepth(
         poses, kf_fixed, rho, lm_anchor, lm_ray,
         obs_kf, obs_lm, obs_px, obs_cam, obs_valid & inlier, params,
-        robust_th=0.0, iters=iters_l2)
+        robust_th=0.0, iters=iters_l2, between_iters=between_iters)
     return poses, pos, rho, inlier & inlier2, cost

@@ -12,7 +12,11 @@ On the CPU:
   stops stepping once it has converged, is dead or has a bad G) equals
   the plain fixed-``iters`` version bit for bit on test_torch_klt.py's
   fixtures, which hold dead rows, rows gated by the min eigenvalue and
-  rows that never converge.
+  rows that never converge;
+- an LK step from per-level correlation tables (``track_level_table``,
+  the constant-time step a table kernel would take; ``csrc/klt_track.cu``
+  keeps the resampled step, see its header) equals the plain resampled
+  step on the same fixtures to 1e-3 px with status equal on every row.
 
 On the card (skipped without one, decided inside the test): the kernel
 against the plain version on the same fixtures and on the split-overflow
@@ -30,12 +34,13 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import chip_smoke
 from ov2slam_torch import kernels
 from ov2slam_torch.core.image import build_pyramid as t_pyr
 from ov2slam_torch.ops import klt as tklt
-from ov2slam_torch.ops.patch import extract_patches, sample_window
+from ov2slam_torch.ops.patch import _hat_pair, extract_patches, sample_window
 
 torch.set_num_threads(1)
 
@@ -337,6 +342,160 @@ def test_early_exit_equals_fixed_steps_bit_for_bit(pair):
     assert min(stats.values()) > 0, stats
 
 
+# --------------------------------------------------------- table step #
+
+def track_level_table(img_prev, img_cur, kps_lvl, flow, alive, win, iters,
+                      eps, min_eig_th, margin):
+    """``ops/klt.py::track_level`` stepping from tables: once per
+    level the correlations Dx, Dy of the gradients with the residual
+    template - search patch (a zero row and column past the patch) at
+    every integer offset; a step combines four corners of each table with
+    its hat weights, rows first, then columns, as ``sample_window`` does,
+    in place of resampling the window."""
+    H, W = img_prev.shape
+    r = win // 2
+    n_px = win * win
+    tpatch = extract_patches(img_prev, kps_lvl - (r + 1), win + 2)
+    T = tpatch[:, 1:-1, 1:-1]
+    Ix = 0.5 * (tpatch[:, 1:-1, 2:] - tpatch[:, 1:-1, :-2])
+    Iy = 0.5 * (tpatch[:, 2:, 1:-1] - tpatch[:, :-2, 1:-1])
+    gxx = torch.sum(Ix * Ix, dim=(-2, -1))
+    gxy = torch.sum(Ix * Iy, dim=(-2, -1))
+    gyy = torch.sum(Iy * Iy, dim=(-2, -1))
+    det = gxx * gyy - gxy * gxy
+    tr = gxx + gyy
+    min_eig = (tr - torch.sqrt(torch.clamp(tr * tr - 4 * det, min=0.0))) / (
+        2.0 * n_px)
+    good_g = min_eig > min_eig_th
+    det_safe = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12),
+                           det)
+    iA, iB, iD = gyy / det_safe, -gxy / det_safe, gxx / det_safe
+    S = win + 2 * margin
+    base = torch.floor(kps_lvl + flow) - r - margin
+    spatch = extract_patches(img_cur, base, S)
+
+    # (N, NO, NO) tables over the offsets 0 ... S - win + 1
+    views = F.pad(spatch, (0, 1, 0, 1)).unfold(1, win, 1).unfold(2, win, 1)
+    resid = T[:, None, None] - views
+    Dx = torch.einsum("nyxij,nij->nyx", resid, Ix)
+    Dy = torch.einsum("nyxij,nij->nyx", resid, Iy)
+    shifts = float(S - win)
+    n = torch.arange(len(flow))
+
+    converged = torch.zeros(flow.shape[0], dtype=torch.bool)
+    for _ in range(iters):
+        off = (kps_lvl + flow) - r - base
+        x0, wx0, wx1 = _hat_pair(torch.clamp(off[:, 0], 0.0, shifts))
+        y0, wy0, wy1 = _hat_pair(torch.clamp(off[:, 1], 0.0, shifts))
+        x0, y0 = x0.long(), y0.long()
+
+        def corners(C):
+            r0 = wy0 * C[n, y0, x0] + wy1 * C[n, y0 + 1, x0]
+            r1 = wy0 * C[n, y0, x0 + 1] + wy1 * C[n, y0 + 1, x0 + 1]
+            return r0 * wx0 + r1 * wx1
+
+        bx = corners(Dx)
+        by = corners(Dy)
+        dx = iA * bx + iB * by
+        dy = iB * bx + iD * by
+        step_ok = (~converged) & alive & good_g
+        flow = torch.where(step_ok[:, None],
+                           flow + torch.stack([dx, dy], -1), flow)
+        converged = converged | (dx * dx + dy * dy < eps * eps)
+
+    centers = kps_lvl + flow
+    in_img = (
+        (centers[:, 0] >= r) & (centers[:, 0] <= W - 1 - r)
+        & (centers[:, 1] >= r) & (centers[:, 1] <= H - 1 - r)
+    )
+    I = sample_window(spatch, centers - r - base, win)
+    residual = torch.mean(torch.abs(I - T), dim=(-2, -1))
+    return flow, alive & good_g & in_img, min_eig, residual
+
+
+def klt_table(pyr_prev, pyr_cur, kps, priors, valid, win=9, iters=30,
+              eps=0.01, min_eig_th=1e-4, max_err=30.0, margin=5):
+    levels = len(pyr_prev)
+    flow = (priors - kps) / (2.0 ** (levels - 1))
+    alive = valid
+    for lvl in range(levels - 1, -1, -1):
+        flow, alive, _, residual = track_level_table(
+            pyr_prev[lvl], pyr_cur[lvl], kps / 2.0 ** lvl, flow, alive,
+            win, iters, eps, min_eig_th, margin)
+        if lvl > 0:
+            flow = flow * 2.0
+    return kps + flow, alive & (residual < max_err), residual
+
+
+def fb_table(pyr_prev, pyr_cur, kps, priors, valid, back_levels=1,
+             max_fb_dist=0.5):
+    fwd, st_f, _ = klt_table(pyr_prev, pyr_cur, kps, priors, valid)
+    bwd, st_b, _ = klt_table(pyr_cur[:back_levels], pyr_prev[:back_levels],
+                             fwd, kps, st_f)
+    return fwd, st_f & st_b & (torch.linalg.norm(bwd - kps, dim=-1)
+                               <= max_fb_dist)
+
+
+TABLE_PX = 1e-3
+# (win, margin) pairs besides the default (9, 5): win 7 takes the kernel's
+# instantiation for 3 window pixels a lane, win 11 the one for 8
+GENERAL_WINDOWS = [(7, 5), (11, 7)]
+
+
+def _table_agrees(label, got, want):
+    gst, wst = got[1].numpy(), want[1].numpy()
+    assert (gst == wst).all(), label
+    both = gst & wst
+    assert both.sum() >= 5, label
+    err = np.abs(got[0].numpy()[both] - want[0].numpy()[both]).max()
+    assert err <= TABLE_PX, (label, err)
+
+
+@pytest.mark.parametrize("fixture", ["pair", "pair windows", "split",
+                                     "flat"])
+def test_table_step_matches_plain(pair, fixture):
+    # the step from per-level correlation tables is the plain resampled
+    # step rearranged by linearity: status equal on every row, positions
+    # within 1e-3 px where both track (the sums round in another order);
+    # also at other windows and margins
+    if fixture.startswith("pair"):
+        a, b, kps, ok = pair
+        pp, pc = _pyr(a, 4), _pyr(b, 4)
+        k, v = torch.as_tensor(kps), torch.as_tensor(ok)
+        prior = k + torch.tensor([1.5, -0.75])
+        cases = [("klt", klt_table(pp, pc, k, prior, v)[:2],
+                  tklt.klt_track_plain(pp, pc, k, prior, v)[:2]),
+                 ("fb", fb_table(pp, pc, k, k, v),
+                  tklt.fb_klt_track_plain(pp, pc, k, k, v)),
+                 ("fb 2 back", fb_table(pp, pc, k, k, v, back_levels=2),
+                  tklt.fb_klt_track_plain(pp, pc, k, k, v, back_levels=2))]
+        if fixture == "pair windows":
+            cases = [(f"klt win {w} margin {m}",
+                      klt_table(pp, pc, k, prior, v, win=w, margin=m)[:2],
+                      tklt.klt_track_plain(pp, pc, k, prior, v, win=w,
+                                           margin=m)[:2])
+                     for w, m in GENERAL_WINDOWS]
+    elif fixture == "split":
+        base, cur, kps, prior, _ = split_case()
+        pp, pc = _pyr(base, 3), _pyr(cur, 3)
+        k, p = torch.as_tensor(kps), torch.as_tensor(prior)
+        v = torch.ones(len(kps), dtype=torch.bool)
+        cases = [("fb", fb_table(pp, pc, k, p, v),
+                  tklt.fb_klt_track_plain(pp, pc, k, p, v)),
+                 ("fb base level", fb_table(pp[:1], pc[:1], k, p, v),
+                  tklt.fb_klt_track_plain(pp[:1], pc[:1], k, p, v))]
+    else:
+        fb, fc, fk, fp = (torch.as_tensor(x) for x in flat_case())
+        pp, pc = _pyr(fb.numpy(), 3), _pyr(fc.numpy(), 3)
+        v = torch.ones(len(fk), dtype=torch.bool)
+        cases = [("fb", fb_table(pp, pc, fk, fp, v),
+                  tklt.fb_klt_track_plain(pp, pc, fk, fp, v)),
+                 ("klt", klt_table(pp, pc, fk, fp, v)[:2],
+                  tklt.klt_track_plain(pp, pc, fk, fp, v)[:2])]
+    for label, got, want in cases:
+        _table_agrees(f"{fixture} {label}", got, want)
+
+
 # ------------------------------------------------------------- the card #
 
 def _agree(label, got, want):
@@ -369,6 +528,22 @@ def test_cuda_kernel_matches_plain(pair):
     assert tklt.klt_track.launches == n0 + 3
     empty = tklt.fb_klt_track(pp, pc, k[:0], k[:0], v[:0])
     assert empty[0].shape == (0, 2) and tklt.klt_track.launches == n0 + 3
+
+
+@pytest.mark.parametrize("win,margin", GENERAL_WINDOWS)
+def test_cuda_kernel_general_windows_match_plain(pair, win, margin):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs in chip_smoke.py)")
+    dev = torch.device("cuda")
+    a, b, kps, ok = pair
+    pp, pc = _pyr(a, 4, dev), _pyr(b, 4, dev)
+    k = torch.as_tensor(kps, device=dev)
+    v = torch.as_tensor(ok, device=dev)
+    for fn, plain in ((tklt.klt_track, tklt.klt_track_plain),
+                      (tklt.fb_klt_track, tklt.fb_klt_track_plain)):
+        _agree(f"{fn.__name__} win {win} margin {margin}",
+               fn(pp, pc, k, k, v, win=win, margin=margin),
+               plain(pp, pc, k, k, v, win=win, margin=margin))
 
 
 @pytest.mark.parametrize("n_sub", [8, 64])

@@ -13,6 +13,7 @@ to the JAX package's digits (test_torch_chained.py holds the synchronous
 pipelined manager to those).
 """
 
+import threading
 import time as _t
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch
 from ov2slam_torch.io.euroc import EurocDataset, write_asl_sequence
 from ov2slam_torch.io.runner import run_sequence
 from ov2slam_torch.io.synthetic import generate_sequence
-from ov2slam_torch.models.pipeline import AsyncSlamManager
+from ov2slam_torch.models.pipeline import AsyncSlamManager, TurnLock
 from ov2slam_torch.models.slam import SlamManager
 from ov2slam_torch.utils.evaluation import ate_rmse
 
@@ -66,9 +67,11 @@ def test_async_short_run_with_loop_closer(chained):
 
 
 def test_async_worker_holds_the_map_lock_through_a_keyframe():
-    # the worker maps a keyframe and runs its local BA under the map lock
-    # (taken again inside, as it is reentrant); the loop closer is entered
-    # without it, so its verification cascade never blocks the front end
+    # the worker maps a keyframe, runs its local BA and the loop closer's
+    # place query and add under the map lock (taken again inside, as it
+    # is reentrant), yielding it to a waiting frame between LM
+    # iterations; the closer's verification cascade runs without it, so
+    # it never blocks the front end
     seq = generate_sequence(n_frames=20, stereo=True, width=376, height=240,
                             n_points=3000, seed=3, speed=0.06)
     cfg = seq.make_config(max_keyframes=64, max_landmarks=8192,
@@ -77,31 +80,91 @@ def test_async_worker_holds_the_map_lock_through_a_keyframe():
                           use_relocalizer=False, lc_recent_mask=1,
                           pipelined_frontend=True, pipeline_depth=2)
     slam = AsyncSlamManager(cfg, device="cpu")
-    held = {"map": [], "ba": [], "closer": []}
+    held = {"map": [], "ba": [], "query": [], "cascade": []}
 
-    def watch(obj, name, key):
+    def watch(obj, name, key, result=None):
         orig = getattr(obj, name)
 
         def wrapped(*a, **k):
-            held[key].append(slam.map_lock._is_owned())
-            return orig(*a, **k)
+            held[key].append(slam.map_lock.owned())
+            out = orig(*a, **k)
+            return out if result is None else result(a, k, out)
         setattr(obj, name, wrapped)
 
     watch(slam.mapper, "process_keyframe", "map")
-    watch(slam.estimator, "local_ba", "ba")
-    watch(slam.loop_closer, "process_keyframe", "closer")
+    watch(slam.estimator, "local_ba", "ba",
+          lambda a, k, out: held["ba"].append(
+              k["between_iters"] == slam.map_lock.yield_turn) or out)
+    # every query hands the cascade a candidate (the keyframe itself),
+    # which the cascade's watch records and rejects
+    watch(slam.loop_closer, "query_keyframe", "query",
+          lambda a, k, out: out or (a[0], a[0], 0, 0))
+    watch(slam.loop_closer, "close_candidate", "cascade")
+    slam.loop_closer._process_candidate = lambda *a, **k: False
     try:
         _feed(slam, seq)
         slam.flush()
         assert slam.n_worker_errors == 0
-        assert held["map"] and held["ba"] and held["closer"], held
+        assert all(held.values()), held
         assert all(held["map"]) and all(held["ba"]), held
-        assert not any(held["closer"]), held
+        assert all(held["query"]), held
+        assert not any(held["cascade"]), held
+        assert len(held["cascade"]) == len(held["query"])
         _, poses = slam.estimated_trajectory()
         ate = ate_rmse(poses, seq.gt_poses, align_scale=False)
         assert ate < 0.15, f"async ATE {ate:.3f} m"
     finally:
         _close(slam)
+
+
+def _blocked(lock, n=1, timeout=5.0):
+    """Wait until ``n`` threads wait for ``lock``."""
+    t_end = _t.time() + timeout
+    while lock._waiting < n:
+        assert _t.time() < t_end, "no thread came to wait for the lock"
+        _t.sleep(0.001)
+
+
+def test_turn_lock_hands_over_at_a_yield_point():
+    # the worker's yield point: with no frame waiting it keeps the lock;
+    # with one waiting, that frame runs its turn at once and the worker
+    # takes the lock back after it, at the depth it held, before a frame
+    # that came to wait during the turn
+    lock = TurnLock()
+    order = []
+
+    def frame(name):
+        with lock:
+            order.append(name)
+            if name == "frame 1":
+                threading.Thread(target=frame, args=("frame 2",),
+                                 daemon=True).start()
+                _blocked(lock)
+
+    with lock:
+        with lock:
+            assert not lock.yield_turn()
+            first = threading.Thread(target=frame, args=("frame 1",),
+                                     daemon=True)
+            first.start()
+            _blocked(lock)
+            order.append("worker before")
+            assert lock.yield_turn()
+            order.append("worker after")
+            assert lock.owned() and lock.handoffs == 1
+        assert lock.owned()
+    first.join(5.0)
+    assert not first.is_alive()
+    t_end = _t.time() + 5.0
+    while len(order) < 4:
+        assert _t.time() < t_end, order
+        _t.sleep(0.001)
+    assert order == ["worker before", "frame 1", "worker after", "frame 2"]
+    assert not lock.owned()
+    with pytest.raises(RuntimeError):
+        lock.release()
+    with pytest.raises(RuntimeError):
+        lock.yield_turn()
 
 
 def test_async_manager_requires_gpu_by_default(monkeypatch):
@@ -186,9 +249,10 @@ def test_async_stress_backlog_and_fold():
     folded = []
     orig_ba = slam.estimator.local_ba
 
-    def spy_ba(kfid, lock=None, extra_window=()):
+    def spy_ba(kfid, lock=None, extra_window=(), between_iters=None):
         folded.extend(int(k) for k in extra_window)
-        return orig_ba(kfid, lock=lock, extra_window=extra_window)
+        return orig_ba(kfid, lock=lock, extra_window=extra_window,
+                       between_iters=between_iters)
 
     slam.estimator.local_ba = spy_ba
     rng = np.random.default_rng(0)

@@ -442,7 +442,9 @@ class PausableClock:
 
 
 class TimedLock:
-    """A lock whose waits to acquire are recorded as "wait: map lock"."""
+    """A lock whose waits to acquire are recorded as "wait: map lock", and
+    the worker's turns given away at its yield points as "wait: map lock
+    (yielded)"."""
 
     def __init__(self, lock, rec: Recorder):
         self._lock, self._rec = lock, rec
@@ -456,11 +458,21 @@ class TimedLock:
     def release(self):
         self._lock.release()
 
+    def yield_turn(self):
+        t0 = self._rec.now()
+        gave = self._lock.yield_turn()
+        if gave:
+            self._rec.add("wait: map lock (yielded)", t0, self._rec.now())
+        return gave
+
     def __enter__(self):
         return self.acquire()
 
     def __exit__(self, *exc):
         self.release()
+
+    def __getattr__(self, name):
+        return getattr(self._lock, name)
 
 
 def traced_manager(rec: Recorder, prof, first: int, n: int, window,
