@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
      ``SlamManager`` with the loop closer on — gates on closures, resets,
      ATE and endpoint error, and on the scorer and the KLT having run as
      their kernels (and never as a plain version on the card; every SLAM
-     slice, A-F and H, is held to the KLT kernel so);
+     slice, A-F and H, is held to the KLT kernel so, and to having
+     replayed its keyframe detection and, with inverse-depth BA, its local
+     BA as CUDA graphs);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
      ``accurate`` profile and the default 2048-keyframe index — gates on
      ATE and resets, reports fps and the profiler's per-stage times; then
@@ -27,6 +29,27 @@ Phases (any failure exits non-zero):
      where both track, two launches bit-equal. Times each call (events,
      device, kernels per call, the plain version, the bound at the data's
      steps) and one LK step's latency (one keypoint, iters 1 against 30);
+     then the pose kernels (``csrc/essential_ransac.cu``,
+     ``csrc/pnp_refine.cu``) against their plain versions on the card: the
+     test fixtures, slice B's front-end call at frame 40 and its loop
+     closer's first call (RANSAC at 1000 iterations), recorded during the
+     slice (``PoseCapture``). Gates: two launches bit-equal; RANSAC
+     candidates slot by slot (samples of distinct rows): within 1e-3
+     relative up to sign of the f64 one where the plain f32 candidate
+     keeps 1e-5 of it, every 5-point candidate on its five rows' epipolar
+     constraints to 1e-5, every 8-point one an essential matrix to 1e-3,
+     and the share within 1e-3 of f64 and the median error to f64 no
+     worse than the plain f32's (2 points, 2x); the chosen inlier mask
+     equal except on rows within 1e-4 of the threshold, n_inliers within
+     that count; PnP's pose within 1e-4 per component, its mask equal
+     except within 1e-4 of the chi2 gate. Times each call (ms, device ms,
+     the plain version, the bound, the chain); then the graph steps: slice
+     B's 10th local BA solve and keyframe detection (``GraphCapture``)
+     through fresh CUDA-graph steps, eager, captured and replayed: the
+     replays equal the eager call bit for bit; host and device ms of each
+     against the eager step;
+     every SLAM slice and the bench must launch both and never run a plain
+     pose function on the card (``gate_pose_launches``);
   6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
      BA, results written — gates on mono initialization, post-init frames,
      scale-aligned ATE, resets and the result files;
@@ -106,8 +129,10 @@ path; the bench's, its lc_query store and every shape e2e_loop launched,
 are held in its phase) against its plain versions and timed at the last,
 one JSON line of
 the plain-torch work with a bound (TSDF integration, the ESDF sweep, an LM
-iteration of the distributed BA), one JSON line of kernel records (the KLT
-kernel and the scorer), the card's name and power limit, and the final
+iteration of the distributed BA), one JSON line of the graph steps' rows,
+one JSON line of kernel records (the KLT
+kernel, the RANSAC and PnP kernels, and the scorer), the card's name and
+power limit, and the final
 ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
@@ -744,12 +769,16 @@ def run_slice(name: str, dev, seq=None):
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
     reset_klt_counts()
+    reset_pose_counts()
+    reset_graph_counts()
     synchronize(dev)
     t0 = time.perf_counter()
     trace = drive_slice(name, slam, seq)
     synchronize(dev)
     wall = time.perf_counter() - t0
     klt = klt_counts()
+    pose = pose_counts()
+    graph = graph_counts()
     launches = hamming.match_scores_bits.launches
     shapes = dict(hamming.match_scores_bits.shapes)
     plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
@@ -776,11 +805,14 @@ def run_slice(name: str, dev, seq=None):
                scorer_plain_runs_on_cuda=plain_cuda,
                index_rows=len(slam.loop_closer.index.kf_ids),
                lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
-               index_cube_bytes=slam.loop_closer.index._cube.numel(), **klt)
+               index_cube_bytes=slam.loop_closer.index._cube.numel(),
+               **klt, **pose, **graph, inverse_depth=cfg.use_inv_depth)
     print(f"[slice {name}] " + json.dumps(res), flush=True)
     print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
           flush=True)
     gate_klt_launches(name, res)
+    gate_pose_launches(name, res)
+    gate_graphs(name, res, cfg.use_inv_depth)
     if launches <= 0:
         fail(f"slice {name}: the scorer kernel never launched")
     if plain_cuda != 0:
@@ -797,7 +829,10 @@ def paced_arrival(slam, frames, n_warm=SLICE_F_WARM, pace_share=0.75):
     median of the warm frames after the tenth), with
     ``backpressure_wait_s`` = 2 x the interval, and the frames that fall
     more than one interval behind dropped (`force_realtime`). Returns
-    (frames dropped, pace fps, flat-out median seconds per frame)."""
+    (frames dropped, pace fps, flat-out median seconds per frame, and the
+    mean seconds per frame of the warm frames after the tenth and of the
+    paced frames processed: the pace assumes the median stands for the
+    mean)."""
     import numpy as np
 
     from ov2slam_torch.bench import paced_replay
@@ -815,7 +850,8 @@ def paced_arrival(slam, frames, n_warm=SLICE_F_WARM, pace_share=0.75):
     arr = paced_replay(frames, lambda f: slam.process_frame(*f), n_warm,
                        pace_fps, clock=time.perf_counter, sleep=time.sleep)
     slam.flush()
-    return arr.n_dropped, pace_fps, med
+    return (arr.n_dropped, pace_fps, med, float(np.mean(walls[10:])),
+            float(np.mean(arr.walls)))
 
 
 class DispatchSyncCounter:
@@ -824,7 +860,9 @@ class DispatchSyncCounter:
     dispatches ``first`` ... ``first + n - 1`` of the front end ``fe``
     (the dispatch only, not the resolve), on the front end's own thread;
     what the worker thread reports in the same windows is counted apart.
-    Each report is kept with the source line that made the call."""
+    Each report is kept with the source line that made the call: the
+    innermost line of this repository's code on the call's stack, and the
+    library line that synchronized where that is not the repository's."""
 
     def __init__(self, fe, first: int, n: int = SYNC_COUNT_DISPATCHES):
         import collections
@@ -845,8 +883,18 @@ class DispatchSyncCounter:
         if "synchroniz" not in str(message):
             return
         if threading.get_ident() == self._thread:
+            import traceback
+
             self.syncs += 1
-            self.sites[f"{os.path.relpath(filename, HERE)}:{lineno}"] += 1
+            site = f"{os.path.relpath(filename, HERE)}:{lineno}"
+            ours = [f for f in traceback.extract_stack()[:-1]
+                    if f.filename.startswith(HERE + os.sep)
+                    and "site-packages" not in f.filename]
+            if ours and ours[-1].filename != filename:
+                f = ours[-1]
+                site = (f"{os.path.relpath(f.filename, HERE)}:{f.lineno} "
+                        f"(via {site})")
+            self.sites[site] += 1
         else:
             self.worker_syncs += 1
 
@@ -971,6 +1019,8 @@ def run_async_slice(name: str, dev, seq=None):
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
     reset_klt_counts()
+    reset_pose_counts()
+    reset_graph_counts()
     syncs = DispatchSyncCounter(slam.frontend, first=10 if name == "F"
                                 else 20)
     synchronize(dev)
@@ -991,6 +1041,8 @@ def run_async_slice(name: str, dev, seq=None):
         slam.close()
     joined = not slam._worker.is_alive()
     klt = klt_counts()
+    pose = pose_counts()
+    graph = graph_counts()
     launches = hamming.match_scores_bits.launches
     shapes = dict(hamming.match_scores_bits.shapes)
     origins = dict(hamming.match_scores_bits.origins)
@@ -1026,7 +1078,8 @@ def run_async_slice(name: str, dev, seq=None):
                lc_recent_mask=cfg.lc_recent_mask,
                map_lock_wait_ms={k: 1e3 * v for k, v in
                                  sorted(waits.wait_s.items())},
-               map_lock_handoffs=slam.map_lock.handoffs, **klt)
+               map_lock_handoffs=slam.map_lock.handoffs, **klt,
+               **pose, **graph, inverse_depth=cfg.use_inv_depth)
     if slam.loop_closer is not None:
         q = prof.stats().get("4.LC_QueryIndex", dict(n=0, mean_ms=0.0))
         res.update(index_rows=len(slam.loop_closer.index.kf_ids),
@@ -1035,9 +1088,11 @@ def run_async_slice(name: str, dev, seq=None):
                    lc_query_lock_wait_ms=(1e3 * waits.query[1]
                                           / max(waits.query[0], 1)))
     if paced is not None:
-        n_dropped, pace_fps, med = paced
+        n_dropped, pace_fps, med, warm_mean, paced_mean = paced
         res.update(dropped=n_dropped, paced_frames=len(frames) - SLICE_F_WARM,
-                   pace_fps=pace_fps, flat_out_fps=1.0 / med)
+                   pace_fps=pace_fps, flat_out_fps=1.0 / med,
+                   warm_median_ms=1e3 * med, warm_mean_ms=1e3 * warm_mean,
+                   paced_mean_ms=1e3 * paced_mean)
     print(f"[slice {name}] " + json.dumps(res), flush=True)
     print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
           flush=True)
@@ -1054,6 +1109,8 @@ def gate_async(r, b=None) -> None:
     if r["scorer_plain_runs_on_cuda"] != 0:
         fail(f"slice {name}: the plain scorer ran on cuda")
     gate_klt_launches(name, r)
+    gate_pose_launches(name, r)
+    gate_graphs(name, r, r["inverse_depth"])
     sd = r["sync_debug"]
     print(f"[slice {name}] synchronizing calls reported by "
           f"set_sync_debug_mode('warn') on the front end's thread during "
@@ -1524,10 +1581,14 @@ def run_slice_h(part: str, dev):
         hamming.match_scores_bits_plain.cuda_runs = 0
         hamming.match_scores_plain.cuda_runs = 0
         reset_klt_counts()
+        reset_pose_counts()
+        reset_graph_counts()
         t0 = time.perf_counter()
         report, slam = run_slam.main(argv + ["--device", str(dev)])
         run_s = time.perf_counter() - t0
         klt = klt_counts()
+        pose = pose_counts()
+        graph = graph_counts()
         launches = hamming.match_scores_bits.launches
         shapes = dict(hamming.match_scores_bits.shapes)
         plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
@@ -1549,7 +1610,9 @@ def run_slice_h(part: str, dev):
                scorer_plain_runs_on_cuda=plain_cuda,
                index_cube_bytes=(lc.index._cube.numel() if lc is not None
                                  else 0),
-               worker_errors=getattr(slam, "n_worker_errors", None), **klt)
+               worker_errors=getattr(slam, "n_worker_errors", None),
+               **klt, **pose, **graph,
+               inverse_depth=slam.cfg.use_inv_depth)
     print(f"[slice H] {part}: " + json.dumps(res), flush=True)
     return res
 
@@ -1566,6 +1629,8 @@ def gate_slice_h(r) -> None:
     if r["scorer_plain_runs_on_cuda"] != 0:
         fail(f"slice H {part}: the plain scorer ran on cuda")
     gate_klt_launches(f"H {part}", r)
+    gate_pose_launches(f"H {part}", r)
+    gate_graphs(f"H {part}", r, r["inverse_depth"])
     if part == "kitti" and r["scorer_launches"] < 1:
         fail("slice H kitti: the scorer kernel never launched under the CLI")
     if r["worker_errors"]:
@@ -2167,6 +2232,782 @@ def phase_klt(dev, seq_b, cfg_b):
 
 
 # ---------------------------------------------------------------------- #
+# phase pose: the RANSAC and PnP kernels against their plain versions
+# ---------------------------------------------------------------------- #
+
+POSE_CAND_REL = 1e-3      # candidates per slot, relative, up to sign
+POSE_CONDITIONED = 1e-5   # ... on slots the plain f32 keeps to this of f64
+POSE_EPI = 1e-5           # a 5-point candidate on its rows (unit-norm E)
+POSE_ESS = 1e-3           # an 8-point candidate's essential residual
+POSE_SHARE_SLACK = 0.02   # slots within POSE_CAND_REL of f64: the kernel's
+POSE_MEDIAN_RATIO = 2.0   # share and median error against the plain's
+POSE_TH_BAND = 1e-4       # mask rows may differ this near the threshold
+PNP_POSE_TOL = 1e-4       # T_out per component
+PNP_GATE_BAND = 1e-4      # mask rows may differ this near the chi2 gate
+POSE_FRAME = 40           # slice B's front-end call held and timed
+GRAPH_CALL = 10           # slice B's local BA and detection replayed
+
+
+def pose_ransac_case(seed: int = 0, n: int = 120, n_iters: int = 40):
+    """test_torch_geometry.py's RANSAC scene, built with numpy: ``n``
+    points seen from two views (the right one rotated by (0.05, -0.1,
+    0.03) rad and moved (0.3, 0.05, -0.1)), 1e-3 of noise on the right
+    view, 20 outliers, the last 8 rows invalid, samples drawn with
+    replacement from the valid rows (some repeat a row). Numpy arrays and
+    numbers: xl, xr, valid, idx5, idx8, focal, err."""
+    import numpy as np
+
+    from ov2slam_torch.utils import lie_np
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -2, 4], [2, 2, 12], size=(n, 3))
+    T_lr = np.concatenate([lie_np.so3_exp(np.array([0.05, -0.1, 0.03])),
+                           [0.3, 0.05, -0.1]])
+    M_rl = lie_np.pose_to_matrix(lie_np.pose_inverse(T_lr))
+    pts_r = (M_rl[:3, :3] @ pts.T).T + M_rl[:3, 3]
+    xl = pts[:, :2] / pts[:, 2:]
+    xr = pts_r[:, :2] / pts_r[:, 2:] + rng.normal(0, 1e-3, (n, 2))
+    xr[:20] += rng.normal(0, 0.05, (20, 2))
+    valid = np.ones(n, bool)
+    valid[-8:] = False
+    rows = np.nonzero(valid)[0]
+    idx5 = rng.choice(rows, (n_iters, 5))
+    idx8 = rng.choice(rows, (max(n_iters // 4, 4), 8))
+    return (xl.astype(np.float32), xr.astype(np.float32), valid, idx5,
+            idx8, 450.0, 3.0)
+
+
+def pose_pnp_case(seed: int = 0, n: int = 80):
+    """test_torch_geometry.py's PnP scene, built with numpy: ``n`` points
+    3-9 m ahead, pixels at f = 400 with 0.5 px of noise and 6 outliers 30
+    px off, the last 4 rows invalid, the start 0.01-0.03 off the true pose.
+    Numpy arrays and the intrinsics: T0, pts, px, valid, (fx, fy, cx,
+    cy)."""
+    import numpy as np
+
+    from ov2slam_torch.utils import lie_np
+
+    rng = np.random.default_rng(seed)
+    R = lie_np.so3_exp(np.array([0.05, 0.1, -0.02]))
+    T_wc = np.concatenate([R, [0.2, 0.1, -0.3]])
+    pts = rng.uniform([-2, -2, 3], [2, 2, 9], size=(n, 3))
+    pc = lie_np.pose_apply(lie_np.pose_inverse(T_wc), pts)
+    px = (np.stack([pc[:, 0] / pc[:, 2], pc[:, 1] / pc[:, 2]], -1) * 400.0
+          + 300.0 + rng.normal(0, 0.5, (n, 2)))
+    px[:6] += 30.0
+    step = lie_np.make_pose(lie_np.so3_exp(np.array([0.01, 0.0, -0.01])),
+                            np.array([0.02, -0.01, 0.03]))
+    T0 = lie_np.pose_compose(step, T_wc)
+    valid = np.ones(n, bool)
+    valid[-4:] = False
+    return (T0.astype(np.float32), pts.astype(np.float32),
+            px.astype(np.float32), valid, (400.0, 400.0, 300.0, 300.0))
+
+
+class PoseSet:
+    """One pose-kernel call of the phase: ``kind`` "ransac"
+    (``essential_ransac`` on given samples) or "pnp" (``pnp_refine``),
+    its inputs on the card."""
+
+    def __init__(self, label, kind, args, kw=None):
+        self.label, self.kind, self.args = label, kind, args
+        self.kw = kw or {}
+
+    @classmethod
+    def ransac(cls, label, xl, xr, valid, idx5, idx8, focal, err):
+        return cls(label, "ransac", (xl, xr, valid, idx5, idx8, focal, err))
+
+    @classmethod
+    def pnp(cls, label, T, pts, px, valid, fx, fy, cx, cy,
+            robust_th=5.9915, iters=10):
+        return cls(label, "pnp", (T, pts, px, valid, fx, fy, cx, cy),
+                   dict(robust_th=robust_th, iters=iters))
+
+    @property
+    def rows(self) -> int:
+        return int(self.args[0 if self.kind == "ransac" else 1].shape[0])
+
+    def call(self, plain: bool = False):
+        """The main path's call: the wrapper (the kernel), or the plain
+        version on the card."""
+        from ov2slam_torch.geometry import essential
+        from ov2slam_torch.solvers import pnp_refine
+
+        if self.kind == "ransac":
+            xl, xr, v, i5, i8, focal, err = self.args
+            fn = (essential.essential_ransac_plain if plain
+                  else essential.essential_ransac)
+            return fn(None, xl, xr, v, focal, err, i5.shape[0], idx5=i5,
+                      idx8=i8)
+        fn = pnp_refine.pnp_refine_plain if plain else pnp_refine.pnp_refine
+        return fn(*self.args, **self.kw)
+
+    def run(self, plain: bool = False, dtype=None):
+        """RANSAC: (E, inlier, n, candidates, quality), from the kernel's
+        launch or the plain version's pieces (in ``dtype``: f64 for the
+        reference); PnP: (T, inlier, cost)."""
+        import torch
+
+        from ov2slam_torch.geometry import essential
+
+        if self.kind == "pnp":
+            return self.call(plain)
+        xl, xr, v, i5, i8, focal, err = self.args
+        if not plain:
+            return essential.launch(xl, xr, v, i5, i8, focal, err)
+        if dtype is not None:
+            xl, xr = xl.to(dtype), xr.to(dtype)
+            if isinstance(focal, torch.Tensor):
+                focal = focal.to(dtype)
+        th = (err / focal) ** 2
+        E, q, inl = essential.ransac_candidates_plain(xl, xr, v, i5, i8, th)
+        best = torch.argmax(q).reshape(1)
+        return E[best][0], inl[best][0], inl[best][0].sum(), E, q
+
+
+def _bits_equal(a, b) -> bool:
+    import torch
+
+    if a.dtype in (torch.float32, torch.float64):
+        a, b = a.view(torch.int32 if a.dtype == torch.float32
+                      else torch.int64), b.view(
+            torch.int32 if b.dtype == torch.float32 else torch.int64)
+    return bool(torch.equal(a, b))
+
+
+def _slot_err(a, b):
+    """Relative difference of two 9-vectors up to sign."""
+    import numpy as np
+
+    return float(min(np.abs(a - b).max(), np.abs(a + b).max())
+                 / max(np.abs(b).max(), 1e-30))
+
+
+def _unit(e):
+    import numpy as np
+
+    e = e.astype(np.float64).reshape(3, 3)
+    return e / np.linalg.norm(e)
+
+
+def ransac_candidate_figures(cand, plain, ref, idx5, idx8, xl, xr):
+    """The kernel's candidates (``cand``) against the plain version's in
+    f32 (``plain``) and f64 (``ref``), numpy (C, 9) each with non-finite
+    rows as NaN or zero, slot by slot (a candidate is compared with the
+    one in its own slot only), over the samples of distinct rows (one that
+    repeats a row has no unique null space); ``xl``, ``xr`` the rows in
+    f64. The f32 5-point loses its digits on close or near-tangent roots,
+    and there the plain version is as far from f64 as the kernel, so the
+    figures hold the kernel four ways, each gated by :func:`ransac_check`:
+    on the slots the plain version keeps to POSE_CONDITIONED of f64, the
+    kernel's error to f64 (at most POSE_CAND_REL); on every finite 5-point
+    slot, the kernel candidate's epipolar residual on its sample's five
+    rows (a wrong null space shows there; at most POSE_EPI); on every
+    finite 8-point slot, how far the kernel's candidate is from an
+    essential matrix (‖2EEᵀE − tr(EEᵀ)E‖ for unit ‖E‖, at most POSE_ESS);
+    and over every slot where all three are finite, the share within
+    POSE_CAND_REL of f64 and the median error to f64, beside the plain
+    version's (a root search that goes wrong more often than f32's
+    rounding moves them)."""
+    import numpy as np
+
+    def finite(x):
+        return bool(np.isfinite(x).all() and np.abs(x).max() > 0)
+
+    groups = [([10 * s + k for k in range(10)], idx5[s])
+              for s in range(len(idx5))]
+    groups += [([10 * len(idx5) + s], idx8[s]) for s in range(len(idx8))]
+    res = dict(slots=0, kernel_finite=0, plain_finite=0, ref_finite=0,
+               conditioned=0, max_err_conditioned=0.0, max_epi_5pt=0.0,
+               max_ess_8pt=0.0, repeated_row_samples=0)
+    ek, ep = [], []
+    for slots, rows in groups:
+        rows = np.asarray(rows)
+        if len(set(rows.tolist())) < len(rows):
+            res["repeated_row_samples"] += 1
+            continue
+        for i in slots:
+            fk, fp, fr = finite(cand[i]), finite(plain[i]), finite(ref[i])
+            res["kernel_finite"] += fk
+            res["plain_finite"] += fp
+            res["ref_finite"] += fr
+            if fk and len(rows) == 5:
+                E = _unit(cand[i])
+                hl = np.c_[xl[rows], np.ones(5)]
+                hr = np.c_[xr[rows], np.ones(5)]
+                res["max_epi_5pt"] = max(res["max_epi_5pt"], float(np.abs(
+                    np.einsum("ni,ij,nj->n", hl, E, hr)).max()))
+            elif fk:
+                E = _unit(cand[i])
+                res["max_ess_8pt"] = max(res["max_ess_8pt"], float(
+                    np.linalg.norm(2 * E @ E.T @ E - np.trace(E @ E.T) * E)))
+            if fk and fp and fr:
+                ek.append(_slot_err(cand[i], ref[i]))
+                ep.append(_slot_err(plain[i], ref[i]))
+                if ep[-1] <= POSE_CONDITIONED:
+                    res["conditioned"] += 1
+                    res["max_err_conditioned"] = max(
+                        res["max_err_conditioned"], ek[-1])
+    ek, ep = np.asarray(ek), np.asarray(ep)
+    res.update(slots=len(ek),
+               share_within_kernel=float(np.mean(ek <= POSE_CAND_REL)),
+               share_within_plain=float(np.mean(ep <= POSE_CAND_REL)),
+               median_err_kernel=float(np.median(ek)),
+               median_err_plain=float(np.median(ep)),
+               max_err_kernel=float(ek.max()), max_err_plain=float(ep.max()))
+    return res
+
+
+def ransac_check(s):
+    """The RANSAC kernel against the plain version on ``s``'s inputs on the
+    card: two launches bit-equal; candidates per slot (see
+    :func:`ransac_candidate_figures`); the chosen inlier mask equal except
+    on rows whose squared Sampson distance under either chosen E lies
+    within POSE_TH_BAND x th of th, and n_inliers within that count.
+    Returns the agreement figures."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.geometry import essential
+
+    got, again = s.run(), s.run()
+    torch.cuda.synchronize()
+    if not all(_bits_equal(x, y) for x, y in zip(got, again)):
+        fail(f"essential_ransac {s.label}: two launches differ")
+    want = s.run(plain=True)
+    ref = s.run(plain=True, dtype=torch.float64)
+    xl, xr, v, i5, i8, focal, err = s.args
+    th = float((err / focal) ** 2)
+    E, inl, n, cand, q = got
+    pE, pinl, pn, pcand, pq = want
+    if not (torch.isfinite(E).all() and E.shape == (3, 3)
+            and inl.shape == (s.rows,)):
+        fail(f"essential_ransac {s.label}: E not finite or misshapen")
+    figs = ransac_candidate_figures(
+        cand.reshape(-1, 9).cpu().numpy(),
+        pcand.reshape(-1, 9).cpu().numpy(),
+        ref[3].reshape(-1, 9).cpu().numpy(), i5.cpu().numpy(),
+        i8.cpu().numpy(), xl.double().cpu().numpy(),
+        xr.double().cpu().numpy())
+    d2 = torch.stack([essential.sampson_dist_sq(e, xl, xr) for e in (E, pE)])
+    band = ((d2 - th).abs() <= POSE_TH_BAND * th).any(0)
+    differ = inl != pinl
+    res = dict(label=s.label, rows=s.rows, samples=[int(i5.shape[0]),
+                                                     int(i8.shape[0])],
+               candidates=int(cand.shape[0]), winner=int(q.argmax()),
+               winner_plain=int(pq.argmax()), n_inliers=int(n),
+               n_inliers_plain=int(pn), rows_differ=int(differ.sum()),
+               rows_in_band=int(band.sum()),
+               rows_differ_outside_band=int((differ & ~band).sum()),
+               max_quality_diff=float(
+                   (q - pq).abs()[(q >= 0) & (pq >= 0)].max())
+               if bool(((q >= 0) & (pq >= 0)).any()) else 0.0,
+               **{f"cand_{k}": val for k, val in figs.items()})
+    if (res["rows_differ_outside_band"] or abs(int(n) - int(pn))
+            > res["rows_in_band"]
+            or figs["max_err_conditioned"] > POSE_CAND_REL
+            or figs["conditioned"] == 0 or figs["slots"] == 0
+            or figs["max_epi_5pt"] > POSE_EPI
+            or figs["max_ess_8pt"] > POSE_ESS
+            or figs["share_within_kernel"]
+            < figs["share_within_plain"] - POSE_SHARE_SLACK
+            or figs["median_err_kernel"]
+            > POSE_MEDIAN_RATIO * figs["median_err_plain"] + 1e-6):
+        fail(f"essential_ransac {s.label}: kernel and plain disagree: {res}")
+    return res
+
+
+def pnp_check(s):
+    """The PnP kernel against the plain version on ``s``'s inputs on the
+    card: two launches bit-equal, T_out within PNP_POSE_TOL per component,
+    the inlier mask equal except on rows whose chi2 under either final
+    pose lies within PNP_GATE_BAND x the gate of the gate. Returns the
+    agreement figures."""
+    import torch
+
+    from ov2slam_torch.solvers import pnp_refine
+    from ov2slam_torch.utils import lie
+
+    got, again = s.run(), s.run()
+    torch.cuda.synchronize()
+    if not all(_bits_equal(x, y) for x, y in zip(got, again)):
+        fail(f"pnp_refine {s.label}: two launches differ")
+    want = s.run(plain=True)
+    T, inl, c = got
+    pT, pinl, pc = want
+    if not (torch.isfinite(T).all() and T.shape == (7,)
+            and inl.shape == (s.rows,)):
+        fail(f"pnp_refine {s.label}: pose not finite or misshapen")
+    _, pts, px, v, fx, fy, cx, cy = s.args
+    rob = s.kw["robust_th"]
+    gate = rob if rob > 0 else 5.9915
+    chi2 = []
+    for Tw in (T, pT):
+        r, _, _ = pnp_refine._pose_residuals(lie.pose_inverse(Tw), pts, px,
+                                             fx, fy, cx, cy)
+        chi2.append(torch.sum(r * r, -1))
+    band = ((torch.stack(chi2) - gate).abs() <= PNP_GATE_BAND * gate).any(0)
+    differ = inl != pinl
+    err = float((T - pT).abs().max())
+    res = dict(label=s.label, rows=s.rows, iters=s.kw["iters"],
+               robust_th=rob, max_pose_err=err, inliers=int(inl.sum()),
+               inliers_plain=int(pinl.sum()), rows_differ=int(differ.sum()),
+               rows_in_band=int(band.sum()),
+               rows_differ_outside_band=int((differ & ~band).sum()),
+               cost=float(c), cost_plain=float(pc))
+    if err > PNP_POSE_TOL or res["rows_differ_outside_band"]:
+        fail(f"pnp_refine {s.label}: kernel and plain disagree: {res}")
+    return res
+
+
+def reset_pose_counts() -> None:
+    """Zero the pose kernels' launch counters and the plain versions'
+    calls on CUDA tensors."""
+    from ov2slam_torch.geometry import essential
+    from ov2slam_torch.solvers import pnp_refine
+
+    for fn in (essential.essential_ransac, pnp_refine.pnp_refine):
+        fn.launches = 0
+        fn.shapes.clear()
+    essential.essential_ransac_plain.cuda_runs = 0
+    pnp_refine.pnp_refine_plain.cuda_runs = 0
+
+
+def pose_counts():
+    """The counters :func:`reset_pose_counts` zeroes, as JSON-ready
+    values: calls of each kernel (a RANSAC call is
+    ``essential.KERNELS_PER_LAUNCH`` launches), [N, 5-point samples,
+    8-point samples, count] and [N, iters, robust, count] per shape, and
+    the plain versions' calls on CUDA tensors."""
+    from ov2slam_torch.geometry import essential
+    from ov2slam_torch.solvers import pnp_refine
+
+    er, pr = essential.essential_ransac, pnp_refine.pnp_refine
+    return dict(
+        ransac_launches=er.launches,
+        ransac_shapes=[[*k, v] for k, v in sorted(er.shapes.items())],
+        pnp_launches=pr.launches,
+        pnp_shapes=[[k[0], k[1], int(k[2]), v]
+                    for k, v in sorted(pr.shapes.items())],
+        pose_plain_runs_on_cuda=(essential.essential_ransac_plain.cuda_runs
+                                 + pnp_refine.pnp_refine_plain.cuda_runs))
+
+
+def reset_graph_counts() -> None:
+    """Zero the CUDA-graph steps' call counters (local BA, keyframe
+    detection)."""
+    from ov2slam_torch.models import frontend_step
+    from ov2slam_torch.solvers import ba_invdepth
+
+    for g in (ba_invdepth.GraphedTwoPass, frontend_step.detect_describe):
+        g.eager = g.captures = g.replays = 0
+
+
+def graph_counts():
+    """The counters :func:`reset_graph_counts` zeroes: each step's calls
+    that ran eagerly (a shape's first), captured (its second; it then
+    replays) and replayed."""
+    from ov2slam_torch.models import frontend_step
+    from ov2slam_torch.solvers import ba_invdepth
+
+    out = {}
+    for key, g in (("ba_graph", ba_invdepth.GraphedTwoPass),
+                   ("detect_graph", frontend_step.detect_describe)):
+        out.update({f"{key}_eager": g.eager, f"{key}_captures": g.captures,
+                    f"{key}_replays": g.replays})
+    return out
+
+
+def gate_graphs(name: str, counts, inverse_depth: bool) -> None:
+    """A SLAM slice detects its keyframes, and solves its inverse-depth
+    local BA windows, through their CUDA graphs: each replays at least
+    once (a shape's first call runs eagerly, its second captures)."""
+    if counts["detect_graph_replays"] < 1:
+        fail(f"slice {name}: keyframe detection never replayed its graph "
+             f"({counts})")
+    if inverse_depth and counts["ba_graph_replays"] < 1:
+        fail(f"slice {name}: local BA never replayed its graphs "
+             f"({counts})")
+
+
+def gate_pose_launches(name: str, counts) -> None:
+    """Every SLAM slice's front end gates its tracks by the RANSAC kernel
+    and refines its pose by the PnP kernel, and never runs a plain pose
+    function on the card."""
+    for key, what in (("ransac_launches", "essential_ransac"),
+                      ("pnp_launches", "pnp_refine")):
+        if counts[key] < 1:
+            fail(f"slice {name}: the {what} kernel never launched")
+    if counts["pose_plain_runs_on_cuda"] != 0:
+        fail(f"slice {name}: the plain pose functions ran "
+             f"{counts['pose_plain_runs_on_cuda']} times on cuda")
+
+
+def pose_sites():
+    """Every binding of a pose wrapper (``essential_ransac``,
+    ``pnp_refine``) that a caller in the port looks up when it calls it:
+    (module, name) pairs."""
+    from ov2slam_torch.geometry import essential
+    from ov2slam_torch.loopclosure import closer
+    from ov2slam_torch.models import frontend, frontend_step, relocalizer
+    from ov2slam_torch.solvers import pnp_refine
+
+    return [(frontend_step, "essential_ransac"),
+            (frontend_step, "pnp_refine"), (frontend, "pnp_refine"),
+            (closer, "essential_ransac"), (closer, "pnp_refine"),
+            (relocalizer, "pnp_refine"),
+            # relative_pose_ransac's (mono initialisation) and
+            # pnp_refine_two_pass's
+            (essential, "essential_ransac"), (pnp_refine, "pnp_refine")]
+
+
+class Swap:
+    """Within ``with``, each (module, name) of ``sites`` holds
+    ``make(module, name, orig)`` in place of ``orig``; the originals come
+    back on exit. ``Swap.plain_pose()`` puts the pose functions' plain
+    versions at every site of :func:`pose_sites`."""
+
+    def __init__(self, sites, make):
+        self.sites, self.make = sites, make
+        self._saved = []
+
+    @classmethod
+    def plain_pose(cls):
+        from ov2slam_torch.geometry import essential
+        from ov2slam_torch.solvers import pnp_refine
+
+        fns = dict(essential_ransac=essential.essential_ransac_plain,
+                   pnp_refine=pnp_refine.pnp_refine_plain)
+        return cls(pose_sites(), lambda m, name, orig: fns[name])
+
+    def __enter__(self):
+        for module, name in self.sites:
+            orig = getattr(module, name)
+            self._saved.append((module, name, orig))
+            setattr(module, name, self.make(module, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, orig in reversed(self._saved):
+            setattr(module, name, orig)
+        self._saved.clear()
+
+
+class PoseCapture:
+    """Within ``with``, records the inputs of the front end's
+    ``POSE_FRAME``-th call of each pose function (``models.frontend_step``)
+    and of the loop closer's first (``loopclosure.closer``), as
+    :class:`PoseSet`s built later on the card. RANSAC samples are drawn
+    here as the wrapper would draw them and passed on, so the run is the
+    one it would have been."""
+
+    def __init__(self, frame: int = POSE_FRAME):
+        self.frame = frame
+        self.calls = {}
+        self.inputs = {}
+
+    @staticmethod
+    def _keep(x):
+        import torch
+
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def _wrap(self, module, name, orig):
+        from ov2slam_torch.geometry import essential
+
+        where = ("front end" if module.__name__.endswith("frontend_step")
+                 else "loop closure")
+        nth = self.frame if where == "front end" else 1
+
+        def record(key, args, kw):
+            n = self.calls[key] = self.calls.get(key, 0) + 1
+            if n == nth:
+                self.inputs[key] = ([self._keep(a) for a in args],
+                                    {k: self._keep(v) for k, v in
+                                     kw.items()})
+
+        if name == "essential_ransac":
+            def wrapped(gen, x_l, x_r, valid_mask, focal, err_th_px,
+                        n_iters=100, idx5=None, idx8=None):
+                idx5, idx8 = essential.ransac_samples(gen, valid_mask,
+                                                      n_iters, idx5, idx8)
+                record((where, name), (x_l, x_r, valid_mask, idx5, idx8,
+                                       focal, err_th_px), {})
+                return orig(gen, x_l, x_r, valid_mask, focal, err_th_px,
+                            n_iters, idx5=idx5, idx8=idx8)
+        else:
+            def wrapped(*args, **kw):
+                record((where, name), args, kw)
+                return orig(*args, **kw)
+        return wrapped
+
+    def __enter__(self):
+        self._swap = Swap([(m, n) for m, n in pose_sites()
+                               if m.__name__.endswith(("frontend_step",
+                                                       "closer"))],
+                              self._wrap)
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._swap.__exit__(*exc)
+
+    def sets(self, what: str):
+        """The recorded calls as PoseSets, labelled with ``what``."""
+        out = []
+        for (where, name), (args, kw) in sorted(self.inputs.items()):
+            n = where if where != "front end" else \
+                f"front end, call {self.frame}"
+            label = f"{what} {n}"
+            if name == "essential_ransac":
+                out.append(PoseSet.ransac(label, *args))
+            else:
+                out.append(PoseSet.pnp(label, *args, **kw))
+        return out
+
+
+class GraphCapture:
+    """Within ``with``, records the inputs of the run's ``GRAPH_CALL``-th
+    local BA solve (``models.estimator``) and keyframe detection
+    (``models.frontend``), the two steps the main path replays as CUDA
+    graphs, for :func:`phase_graphs`."""
+
+    def __init__(self, nth: int = GRAPH_CALL):
+        self.nth = nth
+        self.calls = {}
+        self.inputs = {}
+
+    def _wrap(self, module, name, orig):
+        import torch
+
+        def wrapped(*args, **kw):
+            n = self.calls[name] = self.calls.get(name, 0) + 1
+            if n == self.nth:
+                self.inputs[name] = (
+                    [a.detach().clone() if isinstance(a, torch.Tensor)
+                     else a for a in args],
+                    {k: v for k, v in kw.items() if k != "between_iters"})
+            return orig(*args, **kw)
+        return wrapped
+
+    def __enter__(self):
+        from ov2slam_torch.models import estimator, frontend
+
+        self._swap = Swap([(estimator, "ba_solve_invdepth_two_pass"),
+                           (frontend, "detect_describe")], self._wrap)
+        self._swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._swap.__exit__(*exc)
+
+
+def host_device_ms(fn, runs: int):
+    """Medians over ``runs`` calls of ``fn``, each after a synchronize: ms
+    until the call returns to the host, and ms between CUDA events around
+    it (the call's device work, or its host work where that is longer)."""
+    import numpy as np
+    import torch
+
+    host, dev = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        fn()
+        host.append(1e3 * (time.perf_counter() - t0))
+        e.record()
+        torch.cuda.synchronize()
+        dev.append(s.elapsed_time(e))
+    return float(np.median(host)), float(np.median(dev))
+
+
+def phase_graphs(dev, captured):
+    """Slice B's ``GRAPH_CALL``-th local BA solve and keyframe detection,
+    recorded by :class:`GraphCapture`, each through a fresh graph step
+    three times: eagerly (a shape's first call), captured and replayed,
+    replayed. Both replays must equal the eager call bit for bit. Times
+    (:func:`host_device_ms`) of the eager step (the same inputs, padded
+    as the graph pads them) and of a replay, and the step's CUDA kernels
+    a call and their summed device time (torch.profiler, eagerly: a
+    replay runs the same kernels). Returns the rows."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    from ov2slam_torch.graphs import GraphedStep
+    from ov2slam_torch.models import frontend_step
+    from ov2slam_torch.solvers import ba_invdepth
+
+    t0 = time.perf_counter()
+    missing = {"ba_solve_invdepth_two_pass", "detect_describe"} - set(
+        captured.inputs)
+    if missing:
+        fail(f"graphs: slice B made fewer than {captured.nth} calls of "
+             f"{sorted(missing)}")
+    a, kw = captured.inputs["ba_solve_invdepth_two_pass"]
+    args, prm = tuple(a[:10]), a[10]
+    iters = (kw["iters_robust"], kw["iters_l2"])
+    run = ba_invdepth.GraphedTwoPass(args, prm, kw["robust_th"], *iters)
+    d_args, d_kw = captured.inputs["detect_describe"]
+    step = GraphedStep(frontend_step.fused_detect_describe)
+    cases = (
+        ("local BA", lambda: run(args), lambda: ba_invdepth._two_pass(
+            run.inputs, prm, kw["robust_th"], *iters, None),
+         dict(keyframes=int(args[0].shape[0]),
+              landmarks=int(args[2].shape[0]),
+              landmark_capacity=int(run.inputs[2].shape[0]),
+              observations=int(args[9].sum()), iterations=sum(iters))),
+        ("keyframe detection", lambda: step(*d_args, **d_kw),
+         lambda: frontend_step.fused_detect_describe(*d_args, **d_kw),
+         dict(image=list(d_args[0].shape), detector=d_kw["detector"],
+              max_out=d_kw["max_out"])))
+    rows = []
+    for label, call, eager, shape in cases:
+        outs = [pytree.tree_leaves(call()) for _ in range(3)]
+        torch.cuda.synchronize()
+        if not all(_bits_equal(x, y) for o in outs[1:]
+                   for x, y in zip(o, outs[0])):
+            fail(f"graphs: {label}: a replay differs from the eager call")
+        e_host, e_ms = host_device_ms(eager, 5)
+        r_host, r_ms = host_device_ms(call, 20)
+        kernels, _, kernel_ms = kernel_launches_per_call(eager)
+        row = dict(step=label, **shape, bit_equal=True,
+                   eager_host_ms=e_host, eager_ms=e_ms,
+                   replay_host_ms=r_host, replay_ms=r_ms,
+                   kernels_per_call=kernels, kernel_ms=kernel_ms)
+        print("[graphs] " + json.dumps(row), flush=True)
+        rows.append(row)
+    print(f"[graphs] phase passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows
+
+
+def pose_fixture_sets(dev):
+    """The test fixtures as calls on the card: the RANSAC scene (40 5-point
+    and 10 8-point samples, the focal length as a number and as a tensor)
+    and the PnP scene (Huber and L2, and the two-pass form's second pass
+    on a view of a packed state with the intrinsics as tensors)."""
+    import torch
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    xl, xr, v, i5, i8, focal, err = pose_ransac_case()
+    args = (t(xl), t(xr), t(v), t(i5), t(i8))
+    out = [PoseSet.ransac("fixture scene", *args, focal, err),
+           PoseSet.ransac("fixture scene, focal as a tensor", *args,
+                          torch.tensor(focal, device=dev), err)]
+    T0, pts, px, pv, cal = pose_pnp_case()
+    for rob in (5.9915, 0.0):
+        out.append(PoseSet.pnp(f"fixture scene, robust_th {rob}", t(T0),
+                               t(pts), t(px), t(pv), *cal, robust_th=rob))
+    state = torch.zeros((len(pts), 8), device=dev)
+    state[:, 2:5] = t(pts)
+    fx, fy, cx, cy = (torch.tensor(c, device=dev) for c in cal)
+    out.append(PoseSet.pnp("fixture scene, points a state view, "
+                           "intrinsics tensors, L2 5 iterations", t(T0),
+                           state[:, 2:5], t(px), t(pv), fx, fy, cx, cy,
+                           robust_th=0.0, iters=5))
+    return out
+
+
+def pose_chain(s, runs: int = 50):
+    """The dependent chain of ``s``'s kernel, measured: for RANSAC a call
+    of one 5-point sample on the same rows (one warp's QR, LU and root
+    search, then the scoring of its 10 candidates and the selection); for
+    PnP the call at ``iters`` against iters 0, per iteration. Device ms
+    from calls queued behind a sleep."""
+    from ov2slam_torch.geometry import essential
+    from ov2slam_torch.solvers import pnp_refine
+
+    if s.kind == "ransac":
+        xl, xr, v, i5, i8, focal, err = s.args
+        one = i5[:1].contiguous()
+        none = i8[:0].contiguous()
+        ms = time_cuda_queued(lambda: essential.launch(
+            xl, xr, v, one, none, focal, err), runs)
+        return dict(one_sample_device_ms=ms)
+    kw = dict(s.kw)
+    full = time_cuda_queued(lambda: pnp_refine.launch(*s.args, **kw), runs)
+    zero = time_cuda_queued(lambda: pnp_refine.launch(
+        *s.args, **dict(kw, iters=0)), runs)
+    return dict(iters0_device_ms=zero,
+                iteration_device_ms=(full - zero) / max(kw["iters"], 1))
+
+
+def pose_bound(s, got):
+    """``roofline``'s bound of ``s``'s call at this data's work (the roots
+    the 5-point samples bisected and the candidates scored: the kernel's
+    own candidates and qualities, ``got``)."""
+    import torch
+
+    from ov2slam_torch.roofline import (essential_ransac_bound,
+                                        pnp_refine_bound)
+
+    if s.kind == "pnp":
+        return pnp_refine_bound(s.rows, s.kw["iters"])
+    _, _, _, i5, i8, _, _ = s.args
+    cand, q = got[3], got[4]
+    n5 = int(i5.shape[0])
+    roots = int(torch.isfinite(cand[:10 * n5]).all(-1).all(-1).sum())
+    return essential_ransac_bound(s.rows, n5, int(i8.shape[0]), roots,
+                                  int((q >= 0).sum()))
+
+
+def time_pose(s, runs: int = 20, plain_runs: int = 3):
+    """``s``'s main-path call: median ms (events around one call), device ms
+    (``runs`` calls queued behind a sleep), the kernel launches a call
+    (from the wrappers' counters), the plain version's median ms, the
+    bound and the measured chain."""
+    from ov2slam_torch.geometry import essential
+    from ov2slam_torch.solvers import pnp_refine
+
+    counter = (essential.essential_ransac if s.kind == "ransac"
+               else pnp_refine.pnp_refine)
+    per = essential.KERNELS_PER_LAUNCH if s.kind == "ransac" else 1
+    n0 = counter.launches
+    s.call()
+    launches = (counter.launches - n0) * per
+    got = s.run()
+    return dict(ms=time_cuda(s.call, runs),
+                device_ms=time_cuda_queued(s.call, runs),
+                kernel_launches_per_call=launches,
+                plain_ms=time_cuda(lambda: s.call(plain=True), plain_runs),
+                **pose_bound(s, got), **pose_chain(s))
+
+
+def phase_pose(dev, captured):
+    """The RANSAC and PnP kernels held against their plain versions on the
+    card (the test fixtures; slice B's front-end call and its loop
+    closer's, ``captured`` during slice B by :class:`PoseCapture`) and
+    timed at each. Returns the rows and the largest differences (the
+    conditioned RANSAC candidates', relative; the PnP pose's)."""
+    t0 = time.perf_counter()
+    rows, err = [], dict(ransac=0.0, pnp=0.0)
+    for s in pose_fixture_sets(dev) + captured.sets("slice B"):
+        if s.kind == "ransac":
+            agree = ransac_check(s)
+            err["ransac"] = max(err["ransac"],
+                                agree["cand_max_err_conditioned"])
+        else:
+            agree = pnp_check(s)
+            err["pnp"] = max(err["pnp"], agree["max_pose_err"])
+        row = dict(kind=s.kind, **agree, **time_pose(s))
+        print(f"[pose] {s.kind} {s.label}: " + json.dumps(
+            {k: v for k, v in row.items() if k not in ("kind", "label")}),
+            flush=True)
+        rows.append(row)
+    kinds = {r["kind"] for r in rows if r["label"].startswith("slice B")}
+    if kinds != {"ransac", "pnp"}:
+        fail(f"pose: slice B's calls were not captured ({kinds})")
+    print(f"[pose] phase passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rows, err
+
+
+# ---------------------------------------------------------------------- #
 # phase entry: the fb-KLT flagship call
 # ---------------------------------------------------------------------- #
 
@@ -2334,6 +3175,8 @@ def phase_bench(dev):
     hamming.match_scores_bits_plain.cuda_runs = 0
     hamming.match_scores_plain.cuda_runs = 0
     reset_klt_counts()
+    reset_pose_counts()
+    reset_graph_counts()
     detail = {}
     saved = {k: dict(getattr(bench, k)) for k in BENCH_DEPTH}
     try:
@@ -2347,6 +3190,8 @@ def phase_bench(dev):
     plain_cuda = (hamming.match_scores_bits_plain.cuda_runs
                   + hamming.match_scores_plain.cuda_runs)
     klt = klt_counts()
+    pose = pose_counts()
+    graph = graph_counts()
     t_bench = time.perf_counter() - t0
     line, stages = detail["line"], detail["stages"]
     print("[bench] " + json.dumps(line), flush=True)
@@ -2377,6 +3222,9 @@ def phase_bench(dev):
     if plain_cuda:
         fail("bench: the plain scorer ran on cuda")
     gate_klt_launches("bench", klt)
+    gate_pose_launches("bench", pose)
+    print("[bench] CUDA-graph steps' calls: " + json.dumps(graph),
+          flush=True)
     for name in ("e2e_async", "e2e_async20", "e2e_async40"):
         if stages[name].get("n_worker_errors") != 0:
             fail(f"bench: {name} had worker errors")
@@ -2423,7 +3271,7 @@ def phase_bench(dev):
           f" bytes; scorer launches {launches}", flush=True)
     return dict(line=line, launches=launches, rows=rows, err=err,
                 seconds=secs, protocol=recs,
-                klt_launches=klt["klt_launches"])
+                klt_launches=klt["klt_launches"], pose=pose)
 
 
 def main() -> int:
@@ -2463,12 +3311,15 @@ def main() -> int:
         fail(f"slice A: endpoint error {a['end_err_m']:.4f} m "
              f">= {SLICE_A_MAX_END_ERR}")
 
-    b, seq_b = run_slice("B", dev)
+    with PoseCapture() as captured, GraphCapture() as graph_calls:
+        b, seq_b = run_slice("B", dev)
     gate_b = max(0.09, 1.25 * JAX_SLICE_B_ATE)
     if not b["ate_m"] <= gate_b:
         fail(f"slice B: ATE {b['ate_m']:.4f} m > {gate_b:.4f}")
     klt_rows, klt_err, klt_step = phase_klt(
         dev, seq_b, slice_config("B", seq_b, profiles))
+    pose_rows, pose_err = phase_pose(dev, captured)
+    graph_rows = phase_graphs(dev, graph_calls)
 
     c, _ = run_slice("C", dev)
     gate_slice_c(c)
@@ -2540,7 +3391,31 @@ def main() -> int:
             "ms_per_call", "device_ms_per_call", "kernels_per_call",
             "plain_ms", "bound_ms", "bound_by", "chain_ms")},
         paths=klt_rows)
-    kernels_line = {"kernels": [klt_line, dict(
+    # the pose kernels' top-level figures are slice B's front-end call;
+    # their launches those of every SLAM slice and of the bench
+    slices = (a, b, c, d, e, f, *h.values())
+    pose_line = []
+    for kind, name, source, replaces, key in (
+            ("ransac", "essential_ransac",
+             "ov2slam_torch/csrc/essential_ransac.cu",
+             "ov2slam_tpu/geometry/essential.py:385", "ransac_launches"),
+            ("pnp", "pnp_refine", "ov2slam_torch/csrc/pnp_refine.cu",
+             "ov2slam_tpu/solvers/pnp_refine.py:45", "pnp_launches")):
+        pose_top = next(r for r in pose_rows if r["kind"] == kind
+                        and r["label"].startswith("slice B front end"))
+        pose_line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(r[key] for r in slices) + bn["pose"][key],
+            max_abs_err=pose_err[kind], library_ms=None,
+            **{k: pose_top[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "kernel_launches_per_call", "rows")},
+            launches_by_slice={r["slice"] + (" " + r["part"] if "part" in r
+                                             else ""): r[key]
+                               for r in slices},
+            bench_launches=bn["pose"][key],
+            paths=[r for r in pose_rows if r["kind"] == kind]))
+    kernels_line = {"kernels": [klt_line, *pose_line, dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
@@ -2575,6 +3450,7 @@ def main() -> int:
              dryrun_ms=i["dryrun"]["timed"]["ms_per_iter"],
              dryrun_bound_ms=i["dryrun"]["timed"]["bound_ms"])]}
     print(json.dumps(plain), flush=True)
+    print(json.dumps({"graphs": graph_rows}), flush=True)
     print(f"[chip_smoke] all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels_line), flush=True)

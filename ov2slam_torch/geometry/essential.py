@@ -15,17 +15,25 @@ helpers). The structure is kept:
 Batch dimensions are written out (the JAX version vmaps). RANSAC draws its
 samples from a ``torch.Generator``, or takes them explicitly (``idx5``,
 ``idx8``) so a test can feed both packages the same samples.
+
+:func:`essential_ransac` takes CPU tensors to its plain version
+(:func:`essential_ransac_plain`); on CUDA tensors it draws the samples as
+the plain version does and launches ``csrc/essential_ransac.cu`` (three
+kernels: the hypotheses, their scores, the selection) on the current
+stream, or raises.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
-
 from typing import Optional
 
 import numpy as _np
 import torch
 
+from .. import kernels
+from ..ops import launch as _chk
 from ..utils import lie
 from .triangulation import triangulate_midpoint
 
@@ -352,34 +360,36 @@ def decompose_essential(E, x_l, x_r, valid_mask):
     return poses[best], scores[best]
 
 
-def draw_samples(gen: torch.Generator, valid_mask, n: int, k: int):
+def draw_samples(gen: torch.Generator, valid_mask, n: int, k: int,
+                 probs=None):
     """(n, k) row indices drawn with replacement, uniformly over the valid
-    rows (the JAX version's categorical over log(valid + 1e-9))."""
-    probs = valid_mask.to(torch.float32) + 1e-9
+    rows (the JAX version's categorical over log(valid + 1e-9)).
+    ``probs``: those weights, where the caller has them already."""
+    if probs is None:
+        probs = valid_mask.to(torch.float32) + 1e-9
     return torch.multinomial(probs, n * k, replacement=True,
                              generator=gen).reshape(n, k)
 
 
-def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
-                     focal, err_th_px, n_iters: int = 100,
-                     idx5=None, idx8=None):
-    """Batched essential RANSAC: Nister 5-point minimal samples plus an
-    8-point hypothesis pool (quarter budget), all Sampson-scored together.
-
-    Args:
-      gen: generator for the samples (unused where ``idx5``/``idx8`` are
-        given: (n_iters, 5) and (max(n_iters // 4, 4), 8) row indices).
-      x_l, x_r: (N, 2) normalized coords; valid_mask: (N,) bool.
-      focal: focal length (px) converting err_th to normalized units.
-
-    Returns:
-      (E (3,3), inlier_mask (N,), n_inliers)
-    """
+def ransac_samples(gen, valid_mask, n_iters: int, idx5=None, idx8=None):
+    """The (n_iters, 5) and (max(n_iters // 4, 4), 8) sample rows of one
+    RANSAC call: ``idx5``/``idx8`` where given, else drawn from ``gen`` in
+    that order (the 5-point rows first), the weights formed once."""
     n8 = max(n_iters // 4, 4)
-    if idx5 is None:
-        idx5 = draw_samples(gen, valid_mask, n_iters, 5)
-    if idx8 is None:
-        idx8 = draw_samples(gen, valid_mask, n8, 8)
+    if idx5 is None or idx8 is None:
+        probs = valid_mask.to(torch.float32) + 1e-9
+        if idx5 is None:
+            idx5 = draw_samples(gen, valid_mask, n_iters, 5, probs)
+        if idx8 is None:
+            idx8 = draw_samples(gen, valid_mask, n8, 8, probs)
+    return idx5, idx8
+
+
+def ransac_candidates_plain(x_l, x_r, valid_mask, idx5, idx8, th):
+    """Every hypothesis of one RANSAC call and its score, in plain
+    PyTorch: (E (10 n5 + n8, 3, 3) with non-finite candidates zeroed,
+    quality (10 n5 + n8,) with -1 where not ok or not finite, inlier
+    (10 n5 + n8, N))."""
     ok5 = valid_mask[idx5].all(dim=-1)
     E5, v5 = five_point(x_l[idx5], x_r[idx5])
     E5 = E5.reshape(-1, 3, 3)
@@ -394,15 +404,181 @@ def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
     cand_ok = cand_ok & finite
     E = torch.where(finite[:, None, None], E, torch.zeros_like(E))
 
-    th = (err_th_px / focal) ** 2
     d2 = sampson_dist_sq(E, x_l[None], x_r[None])
     inl = (d2 < th) & valid_mask[None, :]
     quality = torch.where(inl, 1.0 - d2 / th, torch.zeros_like(d2)).sum(-1)
     quality = torch.where(cand_ok, quality, torch.full_like(quality, -1.0))
+    return E, quality, inl
+
+
+def essential_ransac_plain(gen: Optional[torch.Generator], x_l, x_r,
+                           valid_mask, focal, err_th_px, n_iters: int = 100,
+                           idx5=None, idx8=None):
+    """Batched essential RANSAC in plain PyTorch: Nister 5-point minimal
+    samples plus an 8-point hypothesis pool (quarter budget), all
+    Sampson-scored together.
+
+    Args:
+      gen: generator for the samples (unused where ``idx5``/``idx8`` are
+        given: (n_iters, 5) and (max(n_iters // 4, 4), 8) row indices).
+      x_l, x_r: (N, 2) normalized coords; valid_mask: (N,) bool.
+      focal: focal length (px) converting err_th to normalized units.
+
+    Returns:
+      (E (3,3), inlier_mask (N,), n_inliers)
+    """
+    if x_l.is_cuda:
+        essential_ransac_plain.cuda_runs += 1
+    idx5, idx8 = ransac_samples(gen, valid_mask, n_iters, idx5, idx8)
+    th = (err_th_px / focal) ** 2
+    E, quality, inl = ransac_candidates_plain(x_l, x_r, valid_mask, idx5,
+                                              idx8, th)
     # a one-element index tensor: a 0-d one would be read on the host
     best = torch.argmax(quality).reshape(1)
     inl_best = inl[best][0]
     return E[best][0], inl_best, inl_best.sum()
+
+
+# calls on CUDA tensors (the main path must make none)
+essential_ransac_plain.cuda_runs = 0
+
+# what csrc/essential_ransac.cu is sized for: rows (int32 indexing in one
+# selection CTA) and samples (one CTA each)
+MAX_ROWS = 1 << 16
+MAX_SAMPLES = 1 << 16
+KERNELS_PER_LAUNCH = 3
+
+_GRIDS = {}
+
+
+def _theta_grid(dev):
+    """The root search's grid on ``dev``: the plain version's
+    ``torch.linspace`` call, made once per device."""
+    g = _GRIDS.get(dev)
+    if g is None:
+        eps = 1e-4
+        g = _GRIDS[dev] = torch.linspace(
+            -torch.pi / 2 + eps, torch.pi / 2 - eps, _N_GRID,
+            dtype=torch.float32, device=dev)
+    return g
+
+
+class RansacLaunch:
+    """The inputs of one ``essential_ransac_launch`` call in the C
+    function's order (:meth:`c_args`): the rows, their count, the sample
+    rows and counts, the grid, the focal length's device pointer (or None)
+    and the threshold as the kernel forms it (``err``, and ``th`` where
+    the focal length is a number)."""
+
+    def __init__(self, x_l, x_r, valid, n, idx5, n5, idx8, n8, theta, focal,
+                 err, th):
+        self.x_l, self.x_r, self.valid, self.n = x_l, x_r, valid, n
+        self.idx5, self.n5, self.idx8, self.n8 = idx5, n5, idx8, n8
+        self.theta, self.focal, self.err, self.th = theta, focal, err, th
+
+    @property
+    def n_cand(self) -> int:
+        return 10 * self.n5 + self.n8
+
+    def c_args(self):
+        return (self.x_l, self.x_r, self.valid, self.n, self.idx5, self.n5,
+                self.idx8, self.n8, self.theta, self.focal, self.err,
+                self.th)
+
+
+def pack_launch(x_l, x_r, valid_mask, idx5, idx8, focal,
+                err_th_px) -> RansacLaunch:
+    """Check the inputs of one kernel launch and pack its arguments.
+
+    Raises TypeError on a dtype the kernel does not take (f32 rows and
+    focal tensor, bool mask, int64 samples, a number for ``err_th_px``)
+    and ValueError on a tensor on another device than ``x_l``, on an input
+    that is not contiguous, on shapes that do not match, and on more than
+    :data:`MAX_ROWS` rows or :data:`MAX_SAMPLES` samples."""
+    fn = "essential_ransac"
+    dev = x_l.device
+    n = x_l.shape[0] if x_l.dim() == 2 else -1
+    _chk.check(fn, "x_l", x_l, torch.float32, dev, (n, 2))
+    _chk.check(fn, "x_r", x_r, torch.float32, dev, (n, 2))
+    _chk.check(fn, "valid_mask", valid_mask, torch.bool, dev, (n,))
+    n5 = idx5.shape[0] if idx5.dim() == 2 else -1
+    n8 = idx8.shape[0] if idx8.dim() == 2 else -1
+    _chk.check(fn, "idx5", idx5, torch.int64, dev, (n5, 5))
+    _chk.check(fn, "idx8", idx8, torch.int64, dev, (n8, 8))
+    if n > MAX_ROWS:
+        raise ValueError(f"{fn}: {n} rows; the kernel takes at most "
+                         f"{MAX_ROWS}")
+    if not 1 <= n5 + n8 <= MAX_SAMPLES:
+        raise ValueError(f"{fn}: {n5} + {n8} samples; the kernel takes 1 "
+                         f"to {MAX_SAMPLES}")
+    err = _chk.number(fn, "err_th_px", err_th_px)
+    f_ptr, f_val = _chk.scalar(fn, "focal", focal, dev)
+    th = 0.0 if f_ptr is not None else (err / f_val) ** 2
+    theta = _theta_grid(dev) if dev.type == "cuda" else None
+    return RansacLaunch(x_l.data_ptr(), x_r.data_ptr(),
+                        valid_mask.data_ptr(), n, idx5.data_ptr(), n5,
+                        idx8.data_ptr(), n8,
+                        theta.data_ptr() if theta is not None else None,
+                        f_ptr, err, th)
+
+
+def launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px):
+    """One call of ``csrc/essential_ransac.cu`` (three kernel launches) on
+    CUDA tensors, on the current stream of their device: what
+    :func:`essential_ransac_plain` computes on the given samples. Returns
+    (E (3, 3), inlier (N,), n_inliers (), candidates (10 n5 + n8, 3, 3),
+    quality (10 n5 + n8,)); the candidates are as the hypotheses came
+    (NaN where a sample has no root), the quality -1 where a candidate is
+    not ok or not finite. N = 0 launches nothing (E zero, no inliers)."""
+    a = pack_launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px)
+    dev = x_l.device
+    f32 = torch.float32
+    cand = torch.empty((a.n_cand, 3, 3), dtype=f32, device=dev)
+    quality = torch.empty(a.n_cand, dtype=f32, device=dev)
+    if a.n == 0:
+        return (torch.zeros((3, 3), dtype=f32, device=dev),
+                torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros((), dtype=torch.int64, device=dev),
+                cand.fill_(float("nan")), quality.fill_(-1.0))
+    E = torch.empty((3, 3), dtype=f32, device=dev)
+    inl = torch.empty(a.n, dtype=torch.bool, device=dev)
+    n_inl = torch.empty((), dtype=torch.int64, device=dev)
+    cand_ok = torch.empty(a.n_cand, dtype=torch.uint8, device=dev)
+    lib = kernels.load("essential_ransac")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.essential_ransac_launch(
+            *a.c_args(), cand.data_ptr(), cand_ok.data_ptr(),
+            quality.data_ptr(), E.data_ptr(), inl.data_ptr(),
+            n_inl.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"essential_ransac launch failed: code {rc}")
+    essential_ransac.launches += 1
+    essential_ransac.shapes[(a.n, a.n5, a.n8)] += 1
+    return E, inl, n_inl, cand, quality
+
+
+def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
+                     focal, err_th_px, n_iters: int = 100,
+                     idx5=None, idx8=None):
+    """Batched essential RANSAC (see :func:`essential_ransac_plain`). CPU
+    tensors take the plain version; on CUDA tensors the samples are drawn
+    as there (:func:`ransac_samples`) and the rest is one call of the
+    kernel. ``focal``: a number or a one-element f32 tensor.
+
+    Returns (E (3,3), inlier_mask (N,), n_inliers)."""
+    if _chk.device_of(x_l, "essential_ransac").type == "cpu":
+        return essential_ransac_plain(gen, x_l, x_r, valid_mask, focal,
+                                      err_th_px, n_iters, idx5=idx5,
+                                      idx8=idx8)
+    idx5, idx8 = ransac_samples(gen, valid_mask, n_iters, idx5, idx8)
+    return launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px)[:3]
+
+
+# calls of the kernel (each KERNELS_PER_LAUNCH launches), and how many at
+# each (N, 5-point samples, 8-point samples)
+essential_ransac.launches = 0
+essential_ransac.shapes = collections.Counter()
 
 
 def relative_pose_ransac(gen, x_l, x_r, valid_mask, focal, err_th_px,

@@ -47,6 +47,17 @@ _SIGNATURES = {
                    _C.c_int, _C.c_float, _C.c_float, _C.c_float, _C.c_float,
                    _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
                    _C.c_void_p]),
+    "essential_ransac": ("essential_ransac_launch", _C.c_int,
+                         [_C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_int,
+                          _C.c_void_p, _C.c_int, _C.c_void_p, _C.c_int,
+                          _C.c_void_p, _C.c_void_p, _C.c_float, _C.c_float,
+                          _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+    "pnp_refine": ("pnp_refine_launch", _C.c_int,
+                   [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_void_p,
+                    _C.c_int, _C.c_void_p, _C.c_int, _C.c_void_p,
+                    _C.c_void_p, _C.c_float, _C.c_int, _C.c_float,
+                    _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -29,7 +29,7 @@ from ..core.image import build_pyramid, clahe
 from ..geometry.pnp import p3p_ransac
 from ..solvers.pnp_refine import pnp_refine
 from .frontend_step import (CalibArrays, advance_chain_patch,
-                            fused_detect_describe, fused_track_step,
+                            detect_describe, fused_track_step,
                             fused_track_step_chained, pack_chain_state,
                             pack_lm_static, pack_track_out, pack_track_state,
                             patch_chain_pose_delta, patch_chain_rows,
@@ -791,11 +791,15 @@ class FrontEnd:
         k = self._stage_kf.next()
         slots = self._stage_kf.upload(k, "slots", np.concatenate(
             [f.px, f.valid[:, None]], axis=1).astype(np.float32))
-        desc_all, det = fused_detect_describe(
-            self.cur_pyr[0], slots[:, 0:2].contiguous(), slots[:, 2] > 0.5,
-            float(thresh), self._calib, detector=detector,
-            cell_size=cfg.max_dist, max_out=cfg.max_kps,
-            fisheye=self._fisheye)
+        img = self.cur_pyr[0]
+        thresh = float(thresh)
+        if img.is_cuda:   # an input of the graph (see detect_describe)
+            thresh = torch.full((), thresh, dtype=torch.float32,
+                                device=img.device)
+        desc_all, det = detect_describe(
+            img, slots[:, 0:2].contiguous(), slots[:, 2] > 0.5, thresh,
+            calib=self._calib, detector=detector, cell_size=cfg.max_dist,
+            max_out=cfg.max_kps, fisheye=self._fisheye)
         self._stage_kf.download(k, "desc", desc_all)
         self._stage_kf.download(k, "det", torch.cat(
             [det["kps"], det["und"], det["ok"][:, None].to(torch.float32)],

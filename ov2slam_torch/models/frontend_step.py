@@ -23,6 +23,7 @@ import torch
 from ..core.camera import distort_fisheye, distort_radtan
 from ..core.image import build_pyramid, clahe
 from ..geometry.essential import essential_ransac
+from ..graphs import GraphedStep
 from ..ops.klt import fb_klt_track_split, klt_track
 from ..solvers.pnp_refine import pnp_refine
 from ..utils import lie
@@ -150,6 +151,12 @@ def fused_detect_describe(img, px, valid, thresh, calib: CalibArrays,
     und_new = _undistort_px(kps, calib, fisheye)
     return torch.cat([desc_cur, desc_new], dim=0), dict(
         kps=kps, und=und_new, score=scores, ok=ok & ok2)
+
+
+# the keyframe detection of ``models/frontend.py``: on a GPU one CUDA graph
+# per image shape and setting (``thresh`` is then a 0-d tensor, so that the
+# adaptive threshold is an input of the graph and not a constant in it)
+detect_describe = GraphedStep(fused_detect_describe)
 
 
 def fused_track_step(

@@ -55,9 +55,23 @@ _TAP_IDX, _TAP_W = _make_taps(_PATTERN)
 _WORD_WEIGHTS = np.left_shift(np.int64(1), np.arange(32, dtype=np.int64))
 
 
+_ON_DEVICE = {}
+
+
+def _on(arr: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """One of this module's constant arrays on ``device``, uploaded once
+    (a copy from the host cannot be replayed in a CUDA graph)."""
+    key = (id(arr), str(device), dtype)
+    t = _ON_DEVICE.get(key)
+    if t is None:
+        t = _ON_DEVICE[key] = torch.as_tensor(arr, device=device,
+                                              dtype=dtype)
+    return t
+
+
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     """(N, 256) bool → (N, 8) int32 words (uint32 bit patterns)."""
-    w = torch.as_tensor(_WORD_WEIGHTS, device=bits.device)
+    w = _on(_WORD_WEIGHTS, bits.device)
     words = (bits.reshape(-1, N_WORDS, 32).to(torch.int64) * w).sum(-1)
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
         torch.int32)
@@ -81,10 +95,13 @@ def describe_brief(img, kps, valid, pattern=None):
     smoothed = gaussian_blur(img, sigma=2.0, radius=4)
     patches = extract_patches(smoothed, kps - (_HALF + 1), _P)
     flat = patches.reshape(-1, _P * _P)
-    tap_idx, tap_w = ((_TAP_IDX, _TAP_W) if pattern is None
-                      else _make_taps(np.asarray(pattern, np.float32)))
-    idx = torch.as_tensor(tap_idx, device=img.device)
-    w = torch.as_tensor(tap_w, device=img.device, dtype=flat.dtype)
+    if pattern is None:
+        idx = _on(_TAP_IDX, img.device)
+        w = _on(_TAP_W, img.device, flat.dtype)
+    else:
+        tap_idx, tap_w = _make_taps(np.asarray(pattern, np.float32))
+        idx = torch.as_tensor(tap_idx, device=img.device)
+        w = torch.as_tensor(tap_w, device=img.device, dtype=flat.dtype)
     taps = flat[:, idx] * w                              # (N, 512, 4)
     samples = ((taps[..., 0] + taps[..., 1]) + taps[..., 2]) + taps[..., 3]
     bits = samples[:, 0::2] < samples[:, 1::2]           # (N, 256)

@@ -144,9 +144,10 @@ def grid_detect(
                 + torch.clamp(torch.div(ex[:, 0], cell_size,
                                         rounding_mode="floor"),
                               0, gx - 1).long())
+    # every row counts, an invalid one 0 (selecting the valid rows would
+    # read their number back to the host)
     occupied = torch.zeros(gy * gx, dtype=torch.int64, device=dev)
-    occupied.index_add_(0, cell_ids[existing_valid],
-                        torch.ones_like(cell_ids[existing_valid]))
+    occupied.index_add_(0, cell_ids, existing_valid.to(torch.int64))
     occupied = occupied > 0
 
     crop = response[: gy * cell_size, : gx * cell_size]

@@ -34,6 +34,7 @@ from typing import Sequence
 import torch
 
 from .. import kernels
+from .launch import check, device_of
 from .patch import extract_patches, sample_window
 
 # what csrc/klt_track.cu is sized for
@@ -245,31 +246,16 @@ def pack_launch(pyr_prev, pyr_cur, kps, priors, valid, back_levels: int,
     if iters < 0:
         raise ValueError(f"klt_track: iters {iters}")
     n = kps.shape[0]
-    tensors = [(f"pyr_prev[{i}]", t, torch.float32)
-               for i, t in enumerate(pyr_prev)]
-    tensors += [(f"pyr_cur[{i}]", t, torch.float32)
-                for i, t in enumerate(pyr_cur)]
-    tensors += [("kps", kps, torch.float32), ("priors", priors,
-                                              torch.float32),
-                ("valid", valid, torch.bool)]
-    for name, t, dt in tensors:
-        if t.device != dev:
-            raise ValueError(f"klt_track: {name} is on {t.device}, kps on "
-                             f"{dev}")
-        if t.dtype != dt:
-            raise TypeError(f"klt_track: {name} must be {dt}, not {t.dtype}")
-        rows = name in ("kps", "priors") and t.dim() == 2 and (
-            t.stride(1) == 1 and t.stride(0) >= 0)
-        if not (rows or t.is_contiguous()):
-            raise ValueError(f"klt_track: {name} must be contiguous" + (
-                " rows" if name in ("kps", "priors") else ""))
-    for name, t, _ in tensors[:2 * levels]:
+    for i, t in enumerate((*pyr_prev, *pyr_cur)):
+        name = (f"pyr_prev[{i}]" if i < levels
+                else f"pyr_cur[{i - levels}]")
+        check("klt_track", name, t, torch.float32, dev)
         if t.dim() != 2:
             raise ValueError(f"klt_track: {name} must be (H, W)")
-    if kps.shape != (n, 2) or priors.shape != (n, 2) or \
-            valid.shape != (n,):
-        raise ValueError("klt_track: kps, priors must be (N, 2) and valid "
-                         "(N,)")
+    for name, t in (("kps", kps), ("priors", priors)):
+        check("klt_track", name, t, torch.float32, dev, shape=(n, 2),
+              rows=True)
+    check("klt_track", "valid", valid, torch.bool, dev, shape=(n,))
     ptrs = (ctypes.c_int64 * (2 * levels))(
         *[t.data_ptr() for t in (*pyr_prev, *pyr_cur)])
     dims = (ctypes.c_int32 * (4 * levels))(
@@ -320,13 +306,6 @@ def launch(pyr_prev, pyr_cur, kps, priors, valid, back_levels: int = 0,
     return xy, status, residual
 
 
-def _device(kps, fn):
-    dev = kps.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{fn}: unsupported device {dev}")
-    return dev
-
-
 def klt_track(
     pyr_prev: Sequence[torch.Tensor],
     pyr_cur: Sequence[torch.Tensor],
@@ -338,7 +317,7 @@ def klt_track(
     CPU tensors take the plain version; CUDA tensors one kernel launch.
 
     Returns (tracked (N, 2), status (N,), residual (N,))."""
-    if _device(kps, "klt_track").type == "cpu":
+    if device_of(kps, "klt_track").type == "cpu":
         return klt_track_plain(pyr_prev, pyr_cur, kps, priors, valid,
                                win=win, iters=iters, eps=eps,
                                min_eig_th=min_eig_th, max_err=max_err,
@@ -368,7 +347,7 @@ def fb_klt_track(
     take the plain version; CUDA tensors one kernel launch.
 
     Returns (tracked (N, 2), status (N,))."""
-    if _device(kps, "fb_klt_track").type == "cpu":
+    if device_of(kps, "fb_klt_track").type == "cpu":
         return fb_klt_track_plain(pyr_prev, pyr_cur, kps, priors, valid,
                                   win=win, iters=iters, eps=eps,
                                   min_eig_th=min_eig_th, max_err=max_err,

@@ -129,3 +129,88 @@ def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
                 chain_estimate_ms=1e3 * (passes * KLT_SETUP_CYCLES
                                          + most * KLT_CHAIN_CYCLES)
                 / SM_CLOCK_HZ)
+
+
+# f32 operations of the pieces of csrc/essential_ransac.cu, counted from
+# its loops (a multiply-add is two, a division, square root, sine or cosine
+# one): one evaluation of cos^10(t) p(tan t) (a sincos, two runs of ten
+# products, eleven multiply-adds and products); a 5-point sample before the
+# root search (the 5x9 design, the Householder QR of its transpose and four
+# columns of Q, the 9 deg-2 products C, the 10 constraint rows, the 10x10
+# LU and its 10 back substitutions, B(z) and det B); the back substitution
+# of one root (six polynomial values, x, y, E and its norm); an 8-point
+# sample (the 8x9 design, its QR, one column of Q, E^T E, at most 12 Jacobi
+# sweeps of three rotations, the rank-2 projection); one Sampson distance
+# and its score
+RANSAC_EVAL_OPS = 2 + 20 + 33
+RANSAC_FIVE_OPS = (90 + sum(2 * (9 - i) + 4 * (9 - i) * (4 - i) + 4
+                            for i in range(5))
+                   + 4 * sum(4 * (9 - i) for i in range(5))
+                   + 9 * 3 * (32 + 10) + (3 * (2 * 32 + 10 + 80 + 20)
+                                          + 9 * (4 * 80 + 40 + 30))
+                   + sum(2 * (9 - k) * (19 - k) + (9 - k) for k in range(10))
+                   + 10 * 10 * 11 + 3 * 3 * 5 + 9 * (2 * 2 * 4 * 5 + 22)
+                   + 3 * (2 * 2 * 11 + 2 * 5 * 11 + 22))
+RANSAC_ROOT_OPS = 6 * 10 + 12 + 9 * 8 + 10
+RANSAC_EIGHT_OPS = (144 + sum(2 * (9 - i) + 4 * (9 - i) * (7 - i) + 4
+                              for i in range(8))
+                    + sum(4 * (9 - i) for i in range(8)) + 54
+                    + 12 * 3 * 60 + 9 * 4 + 9 * 6 + 9)
+SAMPSON_OPS = 3 * 4 + 2 * 4 + 4 + 1 + 7 + 1 + 3
+
+
+def essential_ransac_bound(n: int, n5: int, n8: int, roots: int,
+                           scored: int):
+    """The least time of one ``essential_ransac`` call on N = ``n`` rows
+    with ``n5`` 5-point and ``n8`` 8-point samples, at this data's work:
+    ``roots`` bisected roots (sign changes kept) over the 5-point samples
+    and ``scored`` candidates that were ok and finite (the others are not
+    scored).
+
+    - f32 operations: every sample's hypotheses (``RANSAC_FIVE_OPS``, the
+      512-point grid and 61 evaluations a root at ``RANSAC_EVAL_OPS``, the
+      back substitution; ``RANSAC_EIGHT_OPS``), a Sampson distance and its
+      score for every row of every scored candidate and for the winner's
+      mask, and the argmax over the candidates;
+    - bytes: the rows (two f32 pairs and the mask byte), the samples
+      (int64) and the 512-point grid read once, E, the mask and the count
+      written once;
+    - the dependent chain (not a bound: see chip_smoke's one-sample call):
+      a sample's QR, LU and 60 bisection steps of one evaluation each.
+    Returns ops, bytes, bound_ms, bound_by."""
+    ops = (n5 * (RANSAC_FIVE_OPS + 512 * RANSAC_EVAL_OPS) + roots * (
+        61 * RANSAC_EVAL_OPS + 2 * 60 + RANSAC_ROOT_OPS)
+        + n8 * RANSAC_EIGHT_OPS + (scored + 1) * n * SAMPSON_OPS
+        + (10 * n5 + n8))
+    nbytes = n * 17 + 8 * (5 * n5 + 8 * n8) + 4 * 512 + 36 + n + 8
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=int(ops), bytes=int(nbytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# f32 operations of csrc/pnp_refine.cu per row and pass (the point
+# centred and rotated, the projection and its residual, chi2, the Huber
+# weight and cost, the 2x6 Jacobian, the 21 entries of H and 6 of g) and
+# per iteration on one thread (H + damping, the 6x6 LU with its
+# substitutions, se3_exp with the left Jacobian, the composition)
+PNP_ROW_OPS = 3 + 36 + 14 + 3 + 10 + 24 + 21 * 6 + 6 * 4 + 2
+PNP_GATE_OPS = 3 + 36 + 14 + 3 + 4
+PNP_SOLVE_OPS = 18 + sum(2 * (5 - k) * (7 - k) + (5 - k) for k in range(6)) \
+    + 36 + 120 + 60
+
+
+def pnp_refine_bound(n: int, iters: int):
+    """The least time of one ``pnp_refine`` call on N = ``n`` rows with
+    ``iters`` LM iterations: f32 operations of (iters + 1) passes over the
+    rows (the start and each candidate pose), the final chi2 gate and the
+    iterations' solves; bytes of the pose, points (3 f32), pixels (2 f32)
+    and mask read once, the pose, mask and cost written once. Returns
+    ops, bytes, bound_ms, bound_by."""
+    ops = ((iters + 1) * n * PNP_ROW_OPS + n * PNP_GATE_OPS
+           + iters * PNP_SOLVE_OPS)
+    nbytes = 28 + n * (12 + 8 + 1) + 28 + n + 4
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=int(ops), bytes=int(nbytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")

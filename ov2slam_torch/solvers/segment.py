@@ -19,7 +19,12 @@ class SegmentSum:
 
     def __init__(self, idx: torch.Tensor, n: int):
         self.perm = torch.argsort(idx, stable=True)
-        self.lengths = torch.bincount(idx, minlength=n)
+        # a count by index_add_ rather than bincount, which reads the
+        # largest index back to the host (no readback: a CUDA graph can
+        # hold the sort)
+        self.lengths = torch.zeros(n, dtype=torch.long,
+                                   device=idx.device).index_add_(
+            0, idx, torch.ones_like(idx, dtype=torch.long))
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return torch.segment_reduce(v[self.perm], "sum",

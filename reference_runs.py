@@ -36,6 +36,10 @@ once per value: the port's ``SlamManager(seed=...)``, which seeds its
 RANSAC generators, or for the JAX package its PRNG keys (manager s, loop
 closer s + 1000, front end s + 2000 and s + 3000, relocalizer s + 4000) in place of its fixed
 ones. A seed given twice shows whether two runs agree to the last bit.
+``--pose plain`` (with ``--port``) routes every caller of the pose
+functions (``essential_ransac``, ``pnp_refine``) to their plain versions,
+on the card too, so that one call can hold the kernels' runs against the
+plain path's.
 
     JAX_PLATFORMS=cpu python reference_runs.py A B
     JAX_PLATFORMS=cpu python reference_runs.py C D
@@ -51,11 +55,13 @@ ones. A seed given twice shows whether two runs agree to the last bit.
     python reference_runs.py --port --device cpu A --seeds 1 2 3
     python reference_runs.py --port --device cpu E
     python3 reference_runs.py --port A --seeds 42 42 1 2 3
+    python3 reference_runs.py --port --pose plain A --seeds 42 1 2 3
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -335,7 +341,8 @@ def run_paced(rule: str, device: str):
     prof = Profiler.instance()
     prof.reset()
     try:
-        dropped, pace_fps, med = chip_smoke.paced_arrival(slam, frames)
+        dropped, pace_fps, med, *_ = chip_smoke.paced_arrival(slam,
+                                                              frames)
         times, poses = slam.estimated_trajectory()
     finally:
         slam.close()
@@ -371,6 +378,9 @@ def main(argv) -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=None,
                     help="default: the port's seed 42, the JAX package's "
                     "own keys")
+    ap.add_argument("--pose", default="kernel", choices=["kernel", "plain"],
+                    help="with --port: the pose functions' kernels (the "
+                    "wrappers) or their plain versions")
     args = ap.parse_args(argv)
 
     import chip_smoke
@@ -387,9 +397,12 @@ def main(argv) -> int:
         from ov2slam_torch.utils.evaluation import ate_rmse
 
         def managers(cfg):
-            for s in args.seeds or [42]:
-                yield dict(seed=s), SlamManager(cfg, device=args.device,
-                                                seed=s)
+            # each run happens between two yields, so inside the swap
+            with (chip_smoke.Swap.plain_pose() if args.pose == "plain"
+                  else contextlib.nullcontext()):
+                for s in args.seeds or [42]:
+                    yield dict(seed=s, pose=args.pose), SlamManager(
+                        cfg, device=args.device, seed=s)
         package, backend = "ov2slam_torch", args.device
     else:
         # slice I shards over 8 virtual CPU devices; the flag must be set

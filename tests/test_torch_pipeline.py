@@ -306,7 +306,7 @@ def test_async_paced_arrival_bench_conditions():
     cfg.validate()
     slam = AsyncSlamManager(cfg, device="cpu")
     try:
-        n_dropped, pace_fps, _ = paced_arrival(slam, frames, n_warm)
+        n_dropped, pace_fps, *_ = paced_arrival(slam, frames, n_warm)
         assert slam.n_worker_errors == 0
         times, poses = slam.estimated_trajectory()
         gt_t = np.asarray(seq.times)

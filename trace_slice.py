@@ -7,18 +7,25 @@ Slices A and B: runs ``--warmup`` frames of the slice through
 time of the traced frames, the summed device time of their CUDA kernels,
 the device's busy share (kernel time over wall time; one stream, so
 kernels do not overlap), kernel launches per frame, the kernels that take
-the most device time, and launches and device ms per frame grouped two
-ways: by ``Profiler`` scope and by the port function that the models layer
+the most device time, the host's launch calls per frame (a CUDA graph's
+replay is one ``cudaGraphLaunch``, whatever kernels it holds), and
+launches, host calls and device ms per frame grouped two ways: by
+``Profiler`` scope and by the port function that the models layer
 called (a function of ``ov2slam_torch``'s ops, core, geometry, solvers,
 loopclosure or mapping packages, the outermost one when they nest;
 "(models: <scope>)" for the models layer's own tensor ops). While traced,
 each scope and each such function, as the models modules hold it, runs
 inside a ``record_function`` range; each device event is charged to the
-ranges around the runtime call that launched it (hand kernels' ctypes
-launches included). The trace holds the device events of only some of the
-KLT kernel's launches, so its device time is missing from those figures;
-the line gives its launches per frame from the wrapper's counter beside
-the ones the trace holds.
+ranges around the runtime call that launched it. The trace holds the
+device events of only some of the hand kernels' ctypes launches, so those
+are counted apart (:class:`HandKernelTimer`): each launch call of a
+``csrc`` library runs between two CUDA events on its stream and is charged
+to the scope and port function open around it, with the kernels it
+launches (three for ``essential_ransac``; the events' span also holds the
+few µs between them); their device events in the trace are left out of the
+totals and the groups. The line's ``hand_kernels`` gives each hand
+kernel's launches and device ms per frame so measured, beside the device
+events the trace holds.
 
 Slices E and F: runs ``chip_smoke.run_async_slice`` (``AsyncSlamManager``,
 the front end on the calling thread, keyframes on the ``kf-worker`` thread
@@ -30,6 +37,9 @@ thread, from which each thread's launches are counted), and is started
 once before the slice so that CUPTI's set-up falls outside the window;
 the time it takes to start and stop is taken out of ``chip_smoke``'s
 clock, so that slice F's pacing does not count it as the system's. The
+hand kernels' launches in the window are timed with CUDA events as for
+A and B; the idle share is given from the trace's device events and again
+with the hand kernels' untraced device time counted busy. The
 waits of both threads (the in-flight frame's readback, the keyframe
 backpressure condition, the map lock) and the ``Profiler`` scopes are
 recorded beside the trace. The JSON line adds the device's idle share
@@ -65,7 +75,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
+import threading
 import time
 
 
@@ -103,7 +115,6 @@ def main(argv) -> int:
     import chip_smoke
     from ov2slam_torch.io import synthetic
     from ov2slam_torch.models.slam import SlamManager
-    from ov2slam_torch.ops import klt
     from ov2slam_torch.utils import profiles
 
     seq, cfg = chip_smoke.make_slice(args.slice, synthetic, profiles)
@@ -120,42 +131,168 @@ def main(argv) -> int:
     for i in range(n0):
         step(i)
     torch.cuda.synchronize()
-    klt_n0 = klt.klt_track.launches
-    with scoped_ranges() as scopes, profile(
+    with scoped_ranges() as scopes, HandKernelTimer() as hand, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n0, n1):
             step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    klt_launches = klt.klt_track.launches - klt_n0
 
     events = prof.events()
-    n_kernels, busy_us, top = kernel_table(events, args.top)
+    n_kernels, busy_us, top = kernel_table(events, args.top, hand=False)
     groups = kernel_groups(events, scopes)
-    klt_traced = sum(1 for e in events
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and chip_smoke.KLT_KERNEL_SYMBOL in e.name)
+    hand_n, hand_us = hand.merge_into(groups)
+    traced = hand_events(events)
     print(json.dumps(dict(
         slice=args.slice, device=torch.cuda.get_device_name(0),
         frames=args.frames, keyframes=int(slam.map._kf_seq_counter),
-        wall_s=wall, kernel_time_s=busy_us * 1e-6,
-        busy_share=busy_us * 1e-6 / wall,
-        kernel_launches=n_kernels,
-        launches_per_frame=n_kernels / args.frames,
+        wall_s=wall, kernel_time_s=(busy_us + hand_us) * 1e-6,
+        busy_share=(busy_us + hand_us) * 1e-6 / wall,
+        kernel_launches=n_kernels + hand_n,
+        launches_per_frame=(n_kernels + hand_n) / args.frames,
         top_kernels=[dict(name=k[:80], launches=n, device_ms=t * 1e-3)
                      for k, n, t in top],
         **{f"per_frame_by_{how}": per_frame(g, args.frames)
            for how, g in groups.items()},
-        klt_kernel=dict(
-            launches_per_frame=klt_launches / args.frames,
-            traced_per_frame=klt_traced / args.frames,
-            note="the trace holds the device events of only some of the "
-                 "KLT kernel's launches (its wrapper's counter gives the "
-                 "launches): its device time is missing from the figures "
-                 "above; chip_smoke.py's [kernels] klt_track lines time "
-                 "it with CUDA events"))), flush=True)
+        **{f"host_calls_per_frame_by_{how}": {
+            k: n / args.frames for k, n in sorted(g.items(),
+                                                  key=lambda kv: -kv[1])}
+           for how, g in host_call_groups(events, scopes, hand).items()},
+        hand_kernels=hand.per_frame(args.frames, traced),
+        host_calls_per_frame=runtime_calls(events, args.frames))),
+        flush=True)
     return 0
+
+
+# the hand kernels of each csrc library, and the kernels one launch call
+# starts
+HAND_KERNELS = {
+    "klt_track": ("klt_kernel",),
+    "essential_ransac": ("ransac_hypotheses_kernel", "ransac_score_kernel",
+                         "ransac_select_kernel"),
+    "pnp_refine": ("pnp_refine_kernel",),
+    "hamming_score": ("score_kernel",),
+}
+# a kernel's name, demangled or mangled (after its length), not inside a
+# longer identifier
+_HAND_RE = re.compile(r"(?<![A-Za-z_])(" + "|".join(
+    k for ks in HAND_KERNELS.values() for k in ks) + r")(?![a-z0-9_])")
+# what is open on each thread: ("scope", name) and ("fn", label) entries
+_OPEN = threading.local()
+
+
+def _open_stack():
+    if not hasattr(_OPEN, "stack"):
+        _OPEN.stack = []
+    return _OPEN.stack
+
+
+def hand_kernel_of(name: str):
+    """The library whose hand kernel a device event ``name`` is, or None
+    (``score_kernel`` alone is the scorer's: the RANSAC's is
+    ``ransac_score_kernel``)."""
+    m = _HAND_RE.search(name)
+    if m is None:
+        return None
+    return next(lib for lib, ks in HAND_KERNELS.items() if m.group(1) in ks)
+
+
+def hand_events(events):
+    """Device events of each hand kernel library that a trace holds."""
+    import torch
+
+    out = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            lib = hand_kernel_of(e.name)
+            if lib is not None:
+                out[lib] = out.get(lib, 0) + 1
+    return out
+
+
+class HandKernelTimer:
+    """While entered and ``active``: every launch call of a hand-kernel
+    library (``kernels._SIGNATURES``) runs between two CUDA events on the
+    current stream (the one the wrappers launch on), and is recorded with
+    the kernels it starts and the ``Profiler`` scope and port function open
+    around it on its thread (the innermost scope, the outermost function;
+    see :class:`scoped_ranges`)."""
+
+    def __init__(self):
+        self.active = True
+        self.rows = []
+        self._saved = []
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from ov2slam_torch import kernels
+
+        kernels.build_all(HAND_KERNELS)
+        for name, ks in HAND_KERNELS.items():
+            lib = kernels.load(name)
+            fn_name = kernels._SIGNATURES[name][0]
+            orig = getattr(lib, fn_name)
+            setattr(lib, fn_name, self._timed(name, len(ks), orig))
+            self._saved.append((lib, fn_name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for lib, fn_name, orig in self._saved:
+            setattr(lib, fn_name, orig)
+
+    def _timed(self, name, n_kernels, orig):
+        import torch
+
+        def call(*args):
+            if not self.active:
+                return orig(*args)
+            stack = _open_stack()
+            scope = next((v for k, v in reversed(stack) if k == "scope"),
+                         "(none)")
+            fn = next((v for k, v in stack if k == "fn"),
+                      f"(models: {scope})")
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            rc = orig(*args)
+            e.record()
+            with self._lock:
+                self.rows.append((name, n_kernels, scope, fn, s, e))
+            return rc
+        return call
+
+    def totals(self):
+        """{library: (kernels, device µs)} and {"scope"|"function": {key:
+        (kernels, µs)}} of the recorded launches (synchronizes)."""
+        import torch
+
+        torch.cuda.synchronize()
+        by_lib, groups = {}, {"scope": {}, "function": {}}
+        for name, n, scope, fn, s, e in self.rows:
+            us = 1e3 * s.elapsed_time(e)
+            for d, key in ((by_lib, name), (groups["scope"], scope),
+                           (groups["function"], fn)):
+                c, t = d.get(key, (0, 0.0))
+                d[key] = (c + n, t + us)
+        return by_lib, groups
+
+    def merge_into(self, groups):
+        """Adds the recorded launches to :func:`kernel_groups`' groups;
+        returns their kernels and device µs."""
+        by_lib, mine = self.totals()
+        for how, g in mine.items():
+            for key, (n, t) in g.items():
+                c0, t0 = groups[how].get(key, (0, 0.0))
+                groups[how][key] = (c0 + n, t0 + t)
+        return (sum(n for n, _ in by_lib.values()),
+                sum(t for _, t in by_lib.values()))
+
+    def per_frame(self, frames: int, traced):
+        by_lib, _ = self.totals()
+        return {name: dict(launches=n / frames, device_ms=1e-3 * t / frames,
+                           traced_device_events=traced.get(name, 0) / frames)
+                for name, (n, t) in sorted(by_lib.items())}
 
 
 # the packages whose functions the models layer calls: a kernel launched
@@ -191,6 +328,7 @@ class scoped_ranges:
             r.__enter__()
             self._open[(threading.get_ident(), name)] = r
             self.scopes.add(name)
+            _open_stack().append(("scope", name))
             return orig_start(prof, name)
 
         def stop(prof, name, sync=None):
@@ -198,6 +336,10 @@ class scoped_ranges:
             r = self._open.pop((threading.get_ident(), name), None)
             if r is not None:
                 r.__exit__(None, None, None)
+                stack = _open_stack()
+                if ("scope", name) in stack:
+                    del stack[len(stack) - 1 - stack[::-1].index(
+                        ("scope", name))]
             return out
 
         Profiler.start, Profiler.stop = start, stop
@@ -226,14 +368,38 @@ def _ranged(fn, label):
     from torch.profiler import record_function
 
     def ranged(*a, **k):
-        with record_function(label):
-            return fn(*a, **k)
+        stack = _open_stack()
+        stack.append(("fn", label[3:]))
+        try:
+            with record_function(label):
+                return fn(*a, **k)
+        finally:
+            stack.pop()
     return ranged
 
 
 # the CUDA runtime calls that put work on a stream
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-            "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync")
+            "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+            "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def _group_keys(call, scopes):
+    """(scope, function) of a runtime call (None: its device event had no
+    call in the trace): the innermost ``Profiler`` scope and the outermost
+    port function among its enclosing CPU events."""
+    if call is None:
+        return "(unattributed)", "(unattributed)"
+    scope = fn = None
+    p = call
+    while p is not None:
+        if scope is None and p.name in scopes:
+            scope = p.name
+        if p.name.startswith("fn "):
+            fn = p.name[3:]
+        p = p.cpu_parent
+    scope = scope or "(none)"
+    return scope, fn or f"(models: {scope})"
 
 
 def kernel_groups(events, scopes):
@@ -242,7 +408,8 @@ def kernel_groups(events, scopes):
     port function (see the module docstring). Each device event is joined
     to the runtime call that launched it (same correlation id), and that
     call's enclosing CPU events name the groups; device events whose call
-    the trace lacks are "(unattributed)"."""
+    the trace lacks are "(unattributed)". Hand kernels' device events are
+    left out (:class:`HandKernelTimer` counts them)."""
     import torch
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -252,22 +419,48 @@ def kernel_groups(events, scopes):
     for d in events:
         if d.device_type != cuda or getattr(d, "is_user_annotation", False):
             continue
-        scope = fn = None
-        p = calls.get(d.id)
-        if p is None:
-            scope = fn = "(unattributed)"
-        while p is not None:
-            if scope is None and p.name in scopes:
-                scope = p.name
-            if p.name.startswith("fn "):
-                fn = p.name[3:]
-            p = p.cpu_parent
-        scope = scope or "(none)"
-        for how, key in (("scope", scope),
-                         ("function", fn or f"(models: {scope})")):
+        if hand_kernel_of(d.name) is not None:
+            continue          # counted by HandKernelTimer
+        scope, fn = _group_keys(calls.get(d.id), scopes)
+        for how, key in (("scope", scope), ("function", fn)):
             c, t = out[how].get(key, (0, 0.0))
             out[how][key] = (c + 1, t + d.time_range.elapsed_us())
     return out
+
+
+def host_call_groups(events, scopes, hand):
+    """The host's launch calls (``LAUNCHES``; a CUDA graph's replay is one)
+    grouped as :func:`kernel_groups` groups kernels, with the hand
+    kernels' launches from ``hand`` (:class:`HandKernelTimer`, one call a
+    kernel)."""
+    import torch
+
+    out = {"scope": {}, "function": {}}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and e.name in LAUNCHES:
+            for how, key in zip(("scope", "function"),
+                                _group_keys(e, scopes)):
+                out[how][key] = out[how].get(key, 0) + 1
+    for how, g in hand.totals()[1].items():
+        for key, (n, _) in g.items():
+            out[how][key] = out[how].get(key, 0) + n
+    return out
+
+
+def runtime_calls(events, frames: int):
+    """The host's calls a frame that put work on a stream (``LAUNCHES``:
+    a CUDA graph's replay is one ``cudaGraphLaunch`` however many kernels
+    it holds), by name; the hand kernels' ctypes launches are not in the
+    trace and are counted by :class:`HandKernelTimer`."""
+    import torch
+
+    out = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU \
+                and e.name in LAUNCHES:
+            out[e.name] = out.get(e.name, 0) + 1
+    return {k: n / frames for k, n in sorted(out.items())}
 
 
 def per_frame(group, frames: int):
@@ -276,9 +469,10 @@ def per_frame(group, frames: int):
             for k, (n, t) in sorted(group.items(), key=lambda kv: -kv[1][1])}
 
 
-def kernel_table(events, top: int):
+def kernel_table(events, top: int, hand: bool = True):
     """(count, device µs, the ``top`` kernels by device time as (name,
-    launches, µs)) of a profiler's events."""
+    launches, µs)) of a profiler's events; without ``hand``, the hand
+    kernels' events are left out (:class:`HandKernelTimer` counts them)."""
     import torch
 
     # kernels appear either as CUDA-typed events or attached to the CPU
@@ -288,6 +482,8 @@ def kernel_table(events, top: int):
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
         kernels = [(k.name, k.duration) for e in events for k in e.kernels]
+    if not hand:
+        kernels = [k for k in kernels if hand_kernel_of(k[0]) is None]
     by_name = {}
     for name, t_us in kernels:
         n, t = by_name.get(name, (0, 0.0))
@@ -476,10 +672,10 @@ class TimedLock:
 
 
 def traced_manager(rec: Recorder, prof, first: int, n: int, window,
-                   clock: PausableClock):
+                   clock: PausableClock, hand: HandKernelTimer):
     """``AsyncSlamManager`` with its waits and scopes recorded, and the
-    profiler on for front-end frames ``first`` ... ``first + n - 1``
-    (its start and stop paused on ``clock``)."""
+    profiler and ``hand`` on for front-end frames ``first`` ... ``first + n
+    - 1`` (the profiler's start and stop paused on ``clock``)."""
     import threading
 
     import torch
@@ -509,8 +705,12 @@ def traced_manager(rec: Recorder, prof, first: int, n: int, window,
             self._frames += 1
             if i == first:
                 torch.cuda.synchronize()
-                clock.paused(prof.start)
-                rec.active = True
+                # the worker launches its BA graphs only while it holds the
+                # map lock: the profiler's start or stop during a graph
+                # launch on another thread deadlocked (CUPTI)
+                with self.map_lock._lock:
+                    clock.paused(prof.start)
+                rec.active = hand.active = True
                 window.append(rec.now())
             t0 = rec.now()
             try:
@@ -520,8 +720,9 @@ def traced_manager(rec: Recorder, prof, first: int, n: int, window,
                 if i == first + n - 1:
                     torch.cuda.synchronize()
                     window.append(rec.now())
-                    rec.active = False
-                    clock.paused(prof.stop)
+                    rec.active = hand.active = False
+                    with self.map_lock._lock:
+                        clock.paused(prof.stop)
 
     return Traced
 
@@ -575,12 +776,15 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
             rec.add(scope, t0, rec.now())
         return out
 
+    hand = HandKernelTimer()
+    hand.active = False
     pipeline.AsyncSlamManager = traced_manager(rec, prof, warmup, frames,
-                                               window, clock)
+                                               window, clock, hand)
     Profiler.start, Profiler.stop = start, stop
     chip_smoke.time = clock
     try:
-        res = chip_smoke.run_async_slice(name, dev)
+        with hand:
+            res = chip_smoke.run_async_slice(name, dev)
     finally:
         pipeline.AsyncSlamManager = orig_cls
         Profiler.start, Profiler.stop = orig_start, orig_stop
@@ -626,7 +830,7 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
     rows = [(names.get(tid, tname), lab, a - base, b - base)
             for tid, tname, lab, a, b in rec.rows]
     launch = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
-              "cuLaunchKernelEx")
+              "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
     launches, by_stream, by_kernel = {}, {}, {}
     for a, b, tid, nm in runtime:
         if nm in launch and w0 <= a < w1:
@@ -674,10 +878,22 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
             k = f"{who}: {lab}"
             lock_in[k] = lock_in.get(k, 0.0) + t
     top_k = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]
+    traced = {}
+    for a, b, cat, stream, nm in dev_ev:
+        lib = hand_kernel_of(nm)
+        if lib is not None and w0 <= a < w1:
+            traced[lib] = traced.get(lib, 0) + 1
+    hand_rows = hand.per_frame(frames, traced)
+    # the hand kernels' device time the trace lacks, counted busy
+    untraced_us = sum(1e3 * r["device_ms"] * frames * max(
+        0.0, 1.0 - r["traced_device_events"] / r["launches"])
+        for r in hand_rows.values() if r["launches"])
     return dict(
         slice=name, device=torch.cuda.get_device_name(0), frames=frames,
         first_frame=warmup, wall_s=wall * 1e-6,
         device_busy_s=busy_us * 1e-6, idle_share=1.0 - busy_us / wall,
+        idle_share_hand_kernels_busy=1.0 - (busy_us + untraced_us) / wall,
+        hand_kernels=hand_rows,
         kernels=sum(by_stream.values()), kernels_by_stream=by_stream,
         launches_per_frame={k: v / frames for k, v in launches.items()},
         thread_time_ms={k: dict(n=n, ms=round(t * 1e-3, 3))
