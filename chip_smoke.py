@@ -33,7 +33,9 @@ Phases (any failure exits non-zero):
      ``csrc/pnp_refine.cu``) against their plain versions on the card: the
      test fixtures, slice B's front-end call at frame 40 and its loop
      closer's first call (RANSAC at 1000 iterations), recorded during the
-     slice (``PoseCapture``). Gates: two launches bit-equal; RANSAC
+     slice (``PoseCapture``). Gates: one kernel launch a call; two
+     launches bit-equal; the front end's and the loop closer's calls
+     issued together on two streams each equal to its call alone; RANSAC
      candidates slot by slot (samples of distinct rows): within 1e-3
      relative up to sign of the f64 one where the plain f32 candidate
      keeps 1e-5 of it, every 5-point candidate on its five rows' epipolar
@@ -2915,10 +2917,10 @@ def pose_fixture_sets(dev):
 
 def pose_chain(s, runs: int = 50):
     """The dependent chain of ``s``'s kernel, measured: for RANSAC a call
-    of one 5-point sample on the same rows (one warp's QR, LU and root
-    search, then the scoring of its 10 candidates and the selection); for
-    PnP the call at ``iters`` against iters 0, per iteration. Device ms
-    from calls queued behind a sleep."""
+    of one 5-point sample on the same rows (one CTA: the QR, LU and det B
+    on a warp, the grid, the root searches a warp each, the scoring of its
+    10 candidates and the selection); for PnP the call at ``iters`` against
+    iters 0, per iteration. Device ms from calls queued behind a sleep."""
     from ov2slam_torch.geometry import essential
     from ov2slam_torch.solvers import pnp_refine
 
@@ -2937,23 +2939,26 @@ def pose_chain(s, runs: int = 50):
                 iteration_device_ms=(full - zero) / max(kw["iters"], 1))
 
 
-def pose_bound(s, got):
+def pose_bound(s):
     """``roofline``'s bound of ``s``'s call at this data's work (the roots
-    the 5-point samples bisected and the candidates scored: the kernel's
-    own candidates and qualities, ``got``)."""
-    import torch
-
+    the 5-point samples bisected, their bisection steps up to each
+    bracket's fixed point and the candidates scored: the kernel's own
+    candidates, step counts and qualities)."""
+    from ov2slam_torch.geometry import essential
     from ov2slam_torch.roofline import (essential_ransac_bound,
                                         pnp_refine_bound)
 
     if s.kind == "pnp":
         return pnp_refine_bound(s.rows, s.kw["iters"])
-    _, _, _, i5, i8, _, _ = s.args
-    cand, q = got[3], got[4]
-    n5 = int(i5.shape[0])
-    roots = int(torch.isfinite(cand[:10 * n5]).all(-1).all(-1).sum())
-    return essential_ransac_bound(s.rows, n5, int(i8.shape[0]), roots,
-                                  int((q >= 0).sum()))
+    xl, xr, v, i5, i8, focal, err = s.args
+    _, _, _, cand, q, steps = essential.launch(xl, xr, v, i5, i8, focal,
+                                               err, steps=True)
+    roots = int((steps > 0).sum())
+    return dict(**essential_ransac_bound(
+        s.rows, int(i5.shape[0]), int(i8.shape[0]), roots,
+        int((q >= 0).sum()), steps=int(steps.sum())),
+        bisection_steps_per_root=int(steps.sum()) / max(roots, 1),
+        bisection_steps_max=int(steps.max()) if steps.numel() else 0)
 
 
 def time_pose(s, runs: int = 20, plain_runs: int = 3):
@@ -2970,23 +2975,83 @@ def time_pose(s, runs: int = 20, plain_runs: int = 3):
     n0 = counter.launches
     s.call()
     launches = (counter.launches - n0) * per
-    got = s.run()
+    if launches != 1:
+        fail(f"pose {s.kind} {s.label}: {launches} kernel launches a call, "
+             f"not 1")
     return dict(ms=time_cuda(s.call, runs),
                 device_ms=time_cuda_queued(s.call, runs),
                 kernel_launches_per_call=launches,
                 plain_ms=time_cuda(lambda: s.call(plain=True), plain_runs),
-                **pose_bound(s, got), **pose_chain(s))
+                **pose_bound(s), **pose_chain(s))
+
+
+def two_stream_rounds(pair, streams, rounds: int = 10):
+    """``pair``'s two calls issued together on ``streams``, queued behind
+    one sleep, ``rounds`` times. Returns the rounds in which both equal
+    their calls alone bit for bit, and those after which every RANSAC
+    ticket is back at 0. Each round's outputs are kept until the end, so
+    that none lands in memory that holds an earlier round's answer: a
+    launch whose selection ran early or not at all then shows."""
+    import torch
+
+    from ov2slam_torch.geometry import essential
+
+    alone = [s.run() for s in pair]
+    kept, equal, zero = [], 0, 0
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2e6))
+        outs = []
+        for s, st in zip(pair, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                outs.append(s.run())
+        torch.cuda.synchronize()
+        kept.append(outs)
+        equal += all(_bits_equal(x, y) for o, a in zip(outs, alone)
+                     for x, y in zip(o, a))
+        zero += all(int(t) == 0 for t in essential._TICKETS.values())
+    return equal, zero
+
+
+def pose_streams(sets, rounds: int = 10):
+    """Slice B's front-end call and its loop closer's call of each pose
+    kernel issued together on two streams (as the front end and the
+    asynchronous worker issue theirs in slice E), each equal bit for bit
+    to its call alone, and the RANSAC tickets back at 0 after each round:
+    the kernel's selection ticket is kept per stream. Returns a row per
+    kernel."""
+    import torch
+
+    rows = []
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for kind in ("ransac", "pnp"):
+        pair = [next(s for s in sets if s.kind == kind
+                     and s.label.startswith(f"slice B {where}"))
+                for where in ("front end", "loop closure")]
+        equal, zero = two_stream_rounds(pair, streams, rounds)
+        row = dict(kind=kind, calls=[s.label for s in pair], rounds=rounds,
+                   bit_equal_rounds=equal, tickets_at_zero_rounds=zero)
+        print("[pose] two streams: " + json.dumps(row), flush=True)
+        if equal != rounds or zero != rounds:
+            fail(f"pose {kind}: calls on two streams differ from their "
+                 f"calls alone or leave a ticket set ({row})")
+        rows.append(row)
+    return rows
 
 
 def phase_pose(dev, captured):
     """The RANSAC and PnP kernels held against their plain versions on the
     card (the test fixtures; slice B's front-end call and its loop
-    closer's, ``captured`` during slice B by :class:`PoseCapture`) and
-    timed at each. Returns the rows and the largest differences (the
-    conditioned RANSAC candidates', relative; the PnP pose's)."""
+    closer's, ``captured`` during slice B by :class:`PoseCapture`), timed
+    at each (one kernel launch a call), and slice B's two calls of each
+    issued together on two streams (:func:`pose_streams`). Returns the
+    rows and the largest differences (the conditioned RANSAC candidates',
+    relative; the PnP pose's)."""
     t0 = time.perf_counter()
     rows, err = [], dict(ransac=0.0, pnp=0.0)
-    for s in pose_fixture_sets(dev) + captured.sets("slice B"):
+    sets = pose_fixture_sets(dev) + captured.sets("slice B")
+    for s in sets:
         if s.kind == "ransac":
             agree = ransac_check(s)
             err["ransac"] = max(err["ransac"],
@@ -3002,6 +3067,7 @@ def phase_pose(dev, captured):
     kinds = {r["kind"] for r in rows if r["label"].startswith("slice B")}
     if kinds != {"ransac", "pnp"}:
         fail(f"pose: slice B's calls were not captured ({kinds})")
+    pose_streams(sets)
     print(f"[pose] phase passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return rows, err

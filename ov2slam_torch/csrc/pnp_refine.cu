@@ -31,10 +31,16 @@
 // same result.
 //
 // Rounding. Each thread sums its rows in index order, then a xor
-// butterfly of shuffles and the warps in order: no atomics, so two
-// launches agree bit for bit. Against the plain version the sums and the
-// 6x6 solve round in another order (its reductions are torch's, its LU
-// LAPACK's or cuSOLVER's), so the pose agrees to round-off and an
+// reduce-scatter of shuffles (offsets 16, 8, 4, 2, 1: at each a lane keeps
+// half of its values and sends the other half, so every sum is paired as
+// in a full butterfly and lane k ends with sum k) and the warps in order:
+// no atomics, so two launches agree bit for bit. The result is also the
+// earlier one-thread form's of this file bit for bit (28 full butterflies,
+// the solve and the exponential on thread 0): the solve keeps its
+// operations element by element, with the contractions ptxas made there
+// written out as fused multiply-adds. Against the plain version the sums
+// and the 6x6 solve round in another order (its reductions are torch's,
+// its LU LAPACK's or cuSOLVER's), so the pose agrees to round-off and an
 // acceptance test c1 < c0 near convergence may go the other way (a step
 // of the order of the round-off). Never build with --use_fast_math.
 //
@@ -43,12 +49,18 @@
 // call (N = 512, 10 iterations) ~1.4 MFLOP, 0.00002 ms at 67 TFLOP/s; the
 // bytes (points, pixels, masks, once) ~11 KB, 0.000003 ms
 // (roofline.py::pnp_refine_bound). Neither binds: each iteration is a
-// dependent chain of a pass, a block reduction of 28 sums and a serial 6x6
-// solve and exponential, so the call takes at least (iters + 2) x that
-// chain.
+// dependent chain of a pass, a block reduction of 28 sums, a 6x6 solve and
+// the exponential, so the call takes at least (iters + 2) x that chain.
 //
 // Design. One CTA of 256 threads; the pose in shared memory, every row's
-// work in registers, the solve on thread 0.
+// work in registers. Warp 0 sums the warps' partial sums, takes the
+// accept decision of the last candidate and solves for the next one, each
+// of its lanes alike with the 6x7 system in registers (row swaps by
+// selects: the one-thread form's dynamic swap put it in local memory);
+// lane 1 takes the exponential's sine and cosine of the full angle while
+// the others take the half angle's. Two barriers an iteration. A solve
+// with lanes 0-5 a row each (pivot, swap and pivot row by shuffles) kept
+// the bits too, but measured slower on the card than this one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -119,16 +131,23 @@ __device__ void pose_inverse(const Pose& T, Pose& o) {
   for (int i = 0; i < 3; ++i) o.t[i] = -r[i];
 }
 
-// lie.py's se3_exp(xi) * T (pose_left_update), xi = [v | w]
-__device__ void left_update(const Pose& T, const float xi[6], Pose& o) {
+// lie.py's se3_exp(xi) * T (pose_left_update), xi = [v | w], by every
+// lane of a warp alike (the same xi on each): lane 0 takes the sine and
+// cosine of th / 2, lane 1 those of th, and each pair goes to every lane,
+// so that every lane computes the same pose
+__device__ void left_update(const Pose& T, const float xi[6], Pose& o,
+                            int lane) {
   const float* v = xi;
   const float* w = xi + 3;
   const float th2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
   const bool small = th2 < 1e-8f;
   const float th = sqrtf(small ? 1.f : th2);
-  float s_half, c_half, s_th, c_th;
-  sincosf(0.5f * th, &s_half, &c_half);
-  sincosf(th, &s_th, &c_th);
+  float s_lane, c_lane;
+  sincosf(lane == 1 ? th : 0.5f * th, &s_lane, &c_lane);
+  const float s_half = __shfl_sync(0xffffffffu, s_lane, 0);
+  const float c_half = __shfl_sync(0xffffffffu, c_lane, 0);
+  const float s_th = __shfl_sync(0xffffffffu, s_lane, 1);
+  const float c_th = __shfl_sync(0xffffffffu, c_lane, 1);
   const float k = small ? 0.5f - th2 / 48.f : s_half / th;
   float qe[4] = {small ? 1.f - th2 / 8.f : c_half, k * w[0], k * w[1],
                  k * w[2]};
@@ -156,47 +175,6 @@ __device__ void left_update(const Pose& T, const float xi[6], Pose& o) {
   float r[3];
   quat_rotate(qe, T.t, r);
   for (int i = 0; i < 3; ++i) o.t[i] = r[i] + te[i];
-}
-
-// solve (H + lam diag(max(diag H, 1e-6)) + 1e-8 I) dx = g by LU with
-// partial pivoting (the first largest pivot, multipliers by the
-// reciprocal)
-__device__ void solve6(const float* hv, const float* g, float lam,
-                       float dx[6]) {
-  float a[6][7];
-  int u = 0;
-  for (int i = 0; i < 6; ++i)
-    for (int j = i; j < 6; ++j, ++u) a[i][j] = a[j][i] = hv[u];
-  for (int i = 0; i < 6; ++i) {
-    a[i][i] = (a[i][i] + lam * fmaxf(a[i][i], 1e-6f)) + 1e-8f;
-    a[i][6] = g[i];
-  }
-  for (int k = 0; k < 6; ++k) {
-    int p = k;
-    float best = fabsf(a[k][k]);
-    for (int r = k + 1; r < 6; ++r)
-      if (fabsf(a[r][k]) > best) {
-        best = fabsf(a[r][k]);
-        p = r;
-      }
-    if (p != k)
-      for (int c = 0; c < 7; ++c) {
-        const float t = a[k][c];
-        a[k][c] = a[p][c];
-        a[p][c] = t;
-      }
-    const float rcp = 1.f / a[k][k];
-    for (int r = k + 1; r < 6; ++r) {
-      const float l = a[r][k] * rcp;
-      a[r][k] = l;
-      for (int c = k + 1; c < 7; ++c) a[r][c] -= l * a[k][c];
-    }
-  }
-  for (int k = 5; k >= 0; --k) {
-    float b = a[k][6];
-    for (int c = k + 1; c < 6; ++c) b -= a[k][c] * dx[c];
-    dx[k] = b / a[k][k];
-  }
 }
 
 struct Cal {
@@ -248,10 +226,23 @@ __device__ __forceinline__ float row_terms(const Pose& T, const float P[3],
   return chi2;
 }
 
-// every thread's rows at pose T, reduced into sum (kVals floats in shared
-// memory) in a fixed order
+// one step of the reduce-scatter at xor offset O: v[0 .. 2 O) in, v[0 .. O)
+// out; a lane with bit O keeps the upper half
+template <int O>
+__device__ __forceinline__ void scatter_step(float* v, int lane) {
+  const bool upper = lane & O;
+#pragma unroll
+  for (int j = 0; j < O; ++j) {
+    const float keep = upper ? v[O + j] : v[j];
+    const float send = upper ? v[j] : v[O + j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+  }
+}
+
+// every thread's rows at pose T, each warp's sums into red[warp] (lane k
+// < kVals writes sum k), then a barrier
 __device__ void pass(const Params& p, const Cal& cal, const float* center,
-                     const Pose& T, float (*red)[kVals], float* sum) {
+                     const Pose& T, float (*red)[kVals]) {
   float acc[kVals];
 #pragma unroll
   for (int v = 0; v < kVals; ++v) acc[v] = 0.f;
@@ -264,31 +255,90 @@ __device__ void pass(const Params& p, const Cal& cal, const float* center,
     row_terms(T, Pc, o[0], o[1], p.valid[i] != 0, cal, p.robust_th, acc,
               dok);
   }
+  float v[32];
 #pragma unroll
-  for (int v = 0; v < kVals; ++v) {
-    float s = acc[v];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    acc[v] = s;
-  }
-  const int warp = threadIdx.x / 32;
-  if ((threadIdx.x & 31) == 0)
-#pragma unroll
-    for (int v = 0; v < kVals; ++v) red[warp][v] = acc[v];
+  for (int k = 0; k < 32; ++k) v[k] = k < kVals ? acc[k] : 0.f;
+  const int lane = threadIdx.x & 31;
+  scatter_step<16>(v, lane);
+  scatter_step<8>(v, lane);
+  scatter_step<4>(v, lane);
+  scatter_step<2>(v, lane);
+  scatter_step<1>(v, lane);
+  if (lane < kVals) red[threadIdx.x / 32][lane] = v[0];
   __syncthreads();
-  if (threadIdx.x < kVals) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
-    sum[threadIdx.x] = s;
+}
+
+// sum ``lane`` (< kVals) over the warps in order; by warp 0
+__device__ __forceinline__ float warp_sums(const float (*red)[kVals],
+                                           int lane) {
+  float s = 0.f;
+  if (lane < kVals)
+    for (int w = 0; w < kWarps; ++w) s += red[w][lane];
+  return s;
+}
+
+// (H + lam diag(max(diag H, 1e-6)) + 1e-8 I) dx = g by LU with partial
+// pivoting (the first largest pivot, multipliers by the reciprocal), on
+// every lane of warp 0 alike, the system in registers (row swaps by
+// selects): lane k < kVals holds sum k (H's 21 entries, then g's 6 and the
+// cost); dx on every lane
+__device__ void solve6(float sums, float lam, float dx[6]) {
+  float a[6][7];
+  int u = 0;
+#pragma unroll
+  for (int i = 0; i < 6; ++i)
+#pragma unroll
+    for (int j = i; j < 6; ++j, ++u)
+      a[i][j] = a[j][i] = __shfl_sync(0xffffffffu, sums, u);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    // (a + lam * max(a, 1e-6)) + 1e-8: ptxas fuses the first product
+    a[i][i] = __fadd_rn(__fmaf_rn(lam, fmaxf(a[i][i], 1e-6f), a[i][i]),
+                        1e-8f);
+    a[i][6] = -__shfl_sync(0xffffffffu, sums, 21 + i);
   }
-  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int p = k;
+    float best = fabsf(a[k][k]);
+#pragma unroll
+    for (int r = k + 1; r < 6; ++r)
+      if (fabsf(a[r][k]) > best) {
+        best = fabsf(a[r][k]);
+        p = r;
+      }
+#pragma unroll
+    for (int r = k + 1; r < 6; ++r)
+      if (r == p)
+#pragma unroll
+        for (int c = 0; c < 7; ++c) {
+          const float t = a[k][c];
+          a[k][c] = a[r][c];
+          a[r][c] = t;
+        }
+    const float rcp = __frcp_rn(a[k][k]);
+#pragma unroll
+    for (int r = k + 1; r < 6; ++r) {
+      const float l = __fmul_rn(a[r][k], rcp);
+      a[r][k] = l;
+#pragma unroll
+      for (int c = k + 1; c < 7; ++c)
+        a[r][c] = __fmaf_rn(-l, a[k][c], a[r][c]);
+    }
+  }
+#pragma unroll
+  for (int k = 5; k >= 0; --k) {
+    float b = a[k][6];
+#pragma unroll
+    for (int c = k + 1; c < 6; ++c) b = __fmaf_rn(-a[k][c], dx[c], b);
+    dx[k] = __fdiv_rn(b, a[k][k]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) pnp_refine_kernel(const Params p) {
   __shared__ float red[kWarps][kVals];
-  __shared__ float cur[kVals];     // H, g, cost at T_cw
-  __shared__ float nxt[kVals];     // ... at the candidate pose
   __shared__ Pose s_T[2];          // T_cw, the candidate
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   Cal cal;
   cal.fx = p.cal_ptr[0] ? *p.cal_ptr[0] : p.cal_val[0];
   cal.fy = p.cal_ptr[1] ? *p.cal_ptr[1] : p.cal_val[1];
@@ -302,29 +352,35 @@ __global__ void __launch_bounds__(kThreads) pnp_refine_kernel(const Params p) {
     pose_inverse(Tw, s_T[0]);
   }
   __syncthreads();
-  pass(p, cal, center, s_T[0], red, cur);
-  float lam = p.lam0, c1 = 0.f;   // thread 0's
-  for (int it = 0; it < p.iters; ++it) {
-    if (threadIdx.x == 0) {
-      float g[6], dx[6];
-      for (int k = 0; k < 6; ++k) g[k] = -cur[21 + k];
-      solve6(cur, g, lam, dx);
-      left_update(s_T[0], dx, s_T[1]);
-    }
-    __syncthreads();
-    pass(p, cal, center, s_T[1], red, nxt);
-    if (threadIdx.x == 0) {
-      c1 = nxt[27];
-      const bool accept = c1 < cur[27];
-      if (accept) {
-        s_T[0] = s_T[1];
-        for (int v = 0; v < kVals; ++v) cur[v] = nxt[v];
-        lam = fmaxf(lam * 0.5f, 1e-8f);
-      } else {
-        lam = fminf(lam * 4.f, 1e2f);
+  pass(p, cal, center, s_T[0], red);
+  // warp 0's: lane k holds sum k of H, g and the cost at T_cw
+  float cur = warp == 0 ? warp_sums(red, lane) : 0.f;
+  float lam = p.lam0, c1 = 0.f;
+  for (int it = 0; it <= p.iters; ++it) {
+    if (warp == 0) {
+      if (it > 0) {   // the last candidate's sums: keep it if it is cheaper
+        const float nxt = warp_sums(red, lane);
+        c1 = __shfl_sync(0xffffffffu, nxt, kVals - 1);
+        const bool accept = c1 < __shfl_sync(0xffffffffu, cur, kVals - 1);
+        if (accept) {
+          if (lane == 0) s_T[0] = s_T[1];
+          cur = nxt;
+          lam = fmaxf(lam * 0.5f, 1e-8f);
+        } else {
+          lam = fminf(lam * 4.f, 1e2f);
+        }
+      }
+      if (it < p.iters) {
+        float dx[6];
+        solve6(cur, lam, dx);
+        Pose next;
+        left_update(s_T[0], dx, next, lane);
+        if (lane == 0) s_T[1] = next;
       }
     }
     __syncthreads();
+    if (it == p.iters) break;
+    pass(p, cal, center, s_T[1], red);
   }
   const float gate = p.robust_th > 0.f ? p.robust_th : 5.9915f;
   const Pose T = s_T[0];

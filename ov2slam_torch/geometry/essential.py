@@ -18,9 +18,9 @@ samples from a ``torch.Generator``, or takes them explicitly (``idx5``,
 
 :func:`essential_ransac` takes CPU tensors to its plain version
 (:func:`essential_ransac_plain`); on CUDA tensors it draws the samples as
-the plain version does and launches ``csrc/essential_ransac.cu`` (three
-kernels: the hypotheses, their scores, the selection) on the current
-stream, or raises.
+the plain version does and launches ``csrc/essential_ransac.cu`` (one
+kernel: a CTA a sample for its hypotheses and their scores, the last CTA
+to finish for the selection) on the current stream, or raises.
 """
 
 from __future__ import annotations
@@ -446,9 +446,25 @@ essential_ransac_plain.cuda_runs = 0
 # selection CTA) and samples (one CTA each)
 MAX_ROWS = 1 << 16
 MAX_SAMPLES = 1 << 16
-KERNELS_PER_LAUNCH = 3
+KERNELS_PER_LAUNCH = 1
 
 _GRIDS = {}
+_TICKETS = {}
+
+
+def _ticket(dev, stream):
+    """The kernel's ticket for launches on ``stream`` of ``dev``: one zeroed
+    int32 per (device, stream), made once on that stream; each launch takes
+    it back to 0. Launches on one stream run in turn; two streams (the
+    front end's and the asynchronous worker's) never share one. The key is
+    the stream's handle: ``torch.cuda.Stream()`` hands out the handles of
+    a fixed pool per device and priority, so the tickets stay few however
+    many stream objects the callers make."""
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
 
 
 def _theta_grid(dev):
@@ -522,24 +538,29 @@ def pack_launch(x_l, x_r, valid_mask, idx5, idx8, focal,
                         f_ptr, err, th)
 
 
-def launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px):
-    """One call of ``csrc/essential_ransac.cu`` (three kernel launches) on
-    CUDA tensors, on the current stream of their device: what
-    :func:`essential_ransac_plain` computes on the given samples. Returns
-    (E (3, 3), inlier (N,), n_inliers (), candidates (10 n5 + n8, 3, 3),
-    quality (10 n5 + n8,)); the candidates are as the hypotheses came
-    (NaN where a sample has no root), the quality -1 where a candidate is
-    not ok or not finite. N = 0 launches nothing (E zero, no inliers)."""
+def launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px,
+           steps: bool = False):
+    """One launch of ``csrc/essential_ransac.cu`` on CUDA tensors, on the
+    current stream of their device: what :func:`essential_ransac_plain`
+    computes on the given samples. Returns (E (3, 3), inlier (N,),
+    n_inliers (), candidates (10 n5 + n8, 3, 3), quality (10 n5 + n8,));
+    the candidates are as the hypotheses came (NaN where a sample has no
+    root), the quality -1 where a candidate is not ok or not finite. With
+    ``steps``, also each 5-point slot's bisection steps up to its bracket's
+    fixed point, that step included ((10 n5,) uint8, at most 60; 0 where
+    the slot has no root). N = 0 launches nothing (E zero, no inliers)."""
     a = pack_launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px)
     dev = x_l.device
     f32 = torch.float32
     cand = torch.empty((a.n_cand, 3, 3), dtype=f32, device=dev)
     quality = torch.empty(a.n_cand, dtype=f32, device=dev)
+    n_steps = (torch.zeros(10 * a.n5, dtype=torch.uint8, device=dev),) \
+        if steps else ()
     if a.n == 0:
         return (torch.zeros((3, 3), dtype=f32, device=dev),
                 torch.zeros(0, dtype=torch.bool, device=dev),
                 torch.zeros((), dtype=torch.int64, device=dev),
-                cand.fill_(float("nan")), quality.fill_(-1.0))
+                cand.fill_(float("nan")), quality.fill_(-1.0), *n_steps)
     E = torch.empty((3, 3), dtype=f32, device=dev)
     inl = torch.empty(a.n, dtype=torch.bool, device=dev)
     n_inl = torch.empty((), dtype=torch.int64, device=dev)
@@ -547,15 +568,17 @@ def launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px):
     lib = kernels.load("essential_ransac")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        ticket = _ticket(dev, stream)
         rc = lib.essential_ransac_launch(
             *a.c_args(), cand.data_ptr(), cand_ok.data_ptr(),
-            quality.data_ptr(), E.data_ptr(), inl.data_ptr(),
+            quality.data_ptr(), n_steps[0].data_ptr() if steps else None,
+            ticket.data_ptr(), E.data_ptr(), inl.data_ptr(),
             n_inl.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"essential_ransac launch failed: code {rc}")
     essential_ransac.launches += 1
     essential_ransac.shapes[(a.n, a.n5, a.n8)] += 1
-    return E, inl, n_inl, cand, quality
+    return (E, inl, n_inl, cand, quality, *n_steps)
 
 
 def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
@@ -575,8 +598,8 @@ def essential_ransac(gen: Optional[torch.Generator], x_l, x_r, valid_mask,
     return launch(x_l, x_r, valid_mask, idx5, idx8, focal, err_th_px)[:3]
 
 
-# calls of the kernel (each KERNELS_PER_LAUNCH launches), and how many at
-# each (N, 5-point samples, 8-point samples)
+# launches of the kernel (KERNELS_PER_LAUNCH kernels each), and how many
+# at each (N, 5-point samples, 8-point samples)
 essential_ransac.launches = 0
 essential_ransac.shapes = collections.Counter()
 

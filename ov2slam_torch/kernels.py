@@ -52,7 +52,8 @@ _SIGNATURES = {
                           _C.c_void_p, _C.c_int, _C.c_void_p, _C.c_int,
                           _C.c_void_p, _C.c_void_p, _C.c_float, _C.c_float,
                           _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
-                          _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+                          _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p]),
     "pnp_refine": ("pnp_refine_launch", _C.c_int,
                    [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_void_p,
                     _C.c_int, _C.c_void_p, _C.c_int, _C.c_void_p,

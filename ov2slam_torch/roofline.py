@@ -160,28 +160,36 @@ SAMPSON_OPS = 3 * 4 + 2 * 4 + 4 + 1 + 7 + 1 + 3
 
 
 def essential_ransac_bound(n: int, n5: int, n8: int, roots: int,
-                           scored: int):
+                           scored: int, steps=None):
     """The least time of one ``essential_ransac`` call on N = ``n`` rows
     with ``n5`` 5-point and ``n8`` 8-point samples, at this data's work:
-    ``roots`` bisected roots (sign changes kept) over the 5-point samples
-    and ``scored`` candidates that were ok and finite (the others are not
+    ``roots`` bisected roots (sign changes kept) over the 5-point samples,
+    ``steps`` bisection steps over them (each root's steps up to its
+    bracket's fixed point, that step included: a step that leaves a
+    bracket as it was repeats itself for good; the kernel counts them,
+    ``essential.launch(..., steps=True)``; None counts all 60 a root) and
+    ``scored`` candidates that were ok and finite (the others are not
     scored).
 
     - f32 operations: every sample's hypotheses (``RANSAC_FIVE_OPS``, the
-      512-point grid and 61 evaluations a root at ``RANSAC_EVAL_OPS``, the
-      back substitution; ``RANSAC_EIGHT_OPS``), a Sampson distance and its
-      score for every row of every scored candidate and for the winner's
-      mask, and the argmax over the candidates;
+      512-point grid at ``RANSAC_EVAL_OPS``, one evaluation and a midpoint
+      a bisection step (a bracket's lower end is a grid point, already
+      evaluated), the back substitution; ``RANSAC_EIGHT_OPS``), a Sampson
+      distance and its score for every row of every scored candidate and
+      for the winner's mask, and the argmax over the candidates;
     - bytes: the rows (two f32 pairs and the mask byte), the samples
       (int64) and the 512-point grid read once, E, the mask and the count
       written once;
     - the dependent chain (not a bound: see chip_smoke's one-sample call):
-      a sample's QR, LU and 60 bisection steps of one evaluation each.
+      a sample's QR, LU and det B on one warp, then each root's search on a
+      warp in rounds of five steps, one evaluation a round.
     Returns ops, bytes, bound_ms, bound_by."""
-    ops = (n5 * (RANSAC_FIVE_OPS + 512 * RANSAC_EVAL_OPS) + roots * (
-        61 * RANSAC_EVAL_OPS + 2 * 60 + RANSAC_ROOT_OPS)
-        + n8 * RANSAC_EIGHT_OPS + (scored + 1) * n * SAMPSON_OPS
-        + (10 * n5 + n8))
+    if steps is None:
+        steps = 60 * roots
+    ops = (n5 * (RANSAC_FIVE_OPS + 512 * RANSAC_EVAL_OPS)
+           + steps * (RANSAC_EVAL_OPS + 2) + roots * RANSAC_ROOT_OPS
+           + n8 * RANSAC_EIGHT_OPS + (scored + 1) * n * SAMPSON_OPS
+           + (10 * n5 + n8))
     nbytes = n * 17 + 8 * (5 * n5 + 8 * n8) + 4 * 512 + 36 + n + 8
     t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
     return dict(ops=int(ops), bytes=int(nbytes),

@@ -19,7 +19,16 @@ On the CPU:
   the same seeded inputs and the same injected samples: candidates per
   slot within 1e-5 up to sign in f64 (on samples of distinct rows: a
   sample with a repeated row has no unique null space), the chosen inlier
-  mask equal; the pose within 1e-4 and the masks equal in f32.
+  mask equal; the pose within 1e-4 and the masks equal in f32;
+- torch mirrors of how the kernels split that work, each equal bit for
+  bit to the sequential form it replaces: the root search in rounds of
+  five speculative steps with its exact early exit (against 60 sequential
+  steps, in f32, on det B of seeded 5-point samples from the JAX package
+  and on a root near t = 0, a root on a grid point and a NaN flo; and the
+  steps to the fixed point within 60), the reduce-scatter of the 28 PnP
+  sums against the full butterflies (N 1 to 1024 rows), and the LU with a
+  column a lane (the pivot on its column's lane, the multipliers
+  broadcast) against ``lu_solve``.
 
 On the card (skipped without one, decided inside the test): each kernel
 against its plain version on the same fixtures (``chip_smoke.pose_*``),
@@ -28,8 +37,11 @@ sign where both are finite (samples of distinct rows), the chosen mask
 equal except on rows whose Sampson distance lies within 1e-4 of the
 threshold; PnP's pose within 1e-4, its mask equal except on rows within
 1e-4 of the chi2 gate; two launches bit-equal; N = 0 launching nothing.
-The file imports no JAX at module level: on the card ``python -m pytest
---noconftest tests/test_torch_pose_kernels.py`` runs it.
+The RANSAC kernel is one launch a call, and the front end's and the loop
+closer's calls issued together on two streams each equal their call alone
+(the kernel's selection ticket is per stream). The file imports no JAX at
+module level: on the card ``python -m pytest --noconftest
+tests/test_torch_pose_kernels.py`` runs it.
 """
 
 import ctypes
@@ -132,11 +144,13 @@ def test_ransac_packing_matches_the_c_signature():
     assert b.focal == f.data_ptr() and b.err == err
     _, restype, argtypes = kernels._SIGNATURES["essential_ransac"]
     c = a.c_args()
-    assert restype is ctypes.c_int and len(c) + 7 == len(argtypes)
+    # then the candidates, their flags and qualities, the step counts, the
+    # ticket, E, the mask, the count and the stream
+    assert restype is ctypes.c_int and len(c) + 9 == len(argtypes)
     _c_types_match(c, argtypes)
     assert [argtypes[i] for i in (3, 5, 7)] == [ctypes.c_int] * 3
     assert argtypes[10:12] == [ctypes.c_float] * 2
-    assert argtypes[len(c):] == [ctypes.c_void_p] * 7
+    assert argtypes[len(c):] == [ctypes.c_void_p] * 9
 
 
 def test_pnp_packing_matches_the_c_signature():
@@ -331,21 +345,33 @@ def first_sign_changes(v, n_max=te._MAX_ROOTS):
     return idx, valid
 
 
-def real_roots_mirror(c):
-    eps = 1e-4
-    theta = torch.linspace(-torch.pi / 2 + eps, torch.pi / 2 - eps,
-                           te._N_GRID, dtype=c.dtype)
-    v = te._poly_tan_eval(c, theta.expand(c.shape[:-1] + (te._N_GRID,)))
-    idx, valid = first_sign_changes(v)
-    lo, hi = theta[idx], theta[idx + 1]
-    flo = te._poly_tan_eval(c, lo)
-    for _ in range(te._BISECT_ITERS):
+def bisect_sequential(evaluate, c, lo, hi, flo, steps=te._BISECT_ITERS):
+    """``steps`` bisection steps of the brackets [lo, hi] (f(lo) = flo) of
+    ``c``'s polynomials, ``evaluate(c, t)`` their values: keep [mid, hi]
+    where flo f(mid) > 0, else [lo, mid]. Returns (lo, hi, flo)."""
+    for _ in range(steps):
         mid = 0.5 * (lo + hi)
-        fmid = te._poly_tan_eval(c, mid)
+        fmid = evaluate(c, mid)
         take_lo = (flo * fmid) > 0
         lo = torch.where(take_lo, mid, lo)
         flo = torch.where(take_lo, fmid, flo)
         hi = torch.where(take_lo, hi, mid)
+    return lo, hi, flo
+
+
+def theta_grid(dtype=torch.float32):
+    eps = 1e-4
+    return torch.linspace(-torch.pi / 2 + eps, torch.pi / 2 - eps,
+                          te._N_GRID, dtype=dtype)
+
+
+def real_roots_mirror(c):
+    theta = theta_grid(c.dtype)
+    v = te._poly_tan_eval(c, theta.expand(c.shape[:-1] + (te._N_GRID,)))
+    idx, valid = first_sign_changes(v)
+    lo, hi = theta[idx], theta[idx + 1]
+    flo = te._poly_tan_eval(c, lo)
+    lo, hi, _ = bisect_sequential(te._poly_tan_eval, c, lo, hi, flo)
     roots = torch.tan(0.5 * (lo + hi))
     valid = valid & (roots.abs() < 1e6)
     return torch.where(valid, roots, torch.full_like(roots, float("nan"))), \
@@ -580,6 +606,216 @@ def test_duplicate_samples_tie_to_the_first():
     assert torch.equal(inl, pinl) and int(n) == int(pn)
 
 
+# --------------------------- the root search, as the kernel splits it #
+
+def poly_tan_eval_elementwise(c, t):
+    """cos^10(t) p(tan t) as the kernel forms it, element by element: s^k
+    and co^(10-k) by repeated products, then the terms summed in k order.
+    ``c`` (t.shape + (11,)). The sine and cosine come from f64, rounded:
+    torch's f32 ones may differ in the last bit with an element's place in
+    a tensor, which two forms of one search must not see."""
+    s = torch.sin(t.double()).to(t.dtype)
+    co = torch.cos(t.double()).to(t.dtype)
+    sk, ck = [torch.ones_like(t)], [torch.ones_like(t)]
+    for _ in range(10):
+        sk.append(sk[-1] * s)
+        ck.append(ck[-1] * co)
+    acc = torch.zeros_like(t)
+    for k in range(11):
+        acc = acc + c[..., k] * (sk[k] * ck[10 - k])
+    return acc
+
+
+def _same(a, b):
+    return a.view(torch.int32) == b.view(torch.int32)
+
+
+def bisect_speculative(evaluate, c, lo, hi, flo, levels=5,
+                       cap=te._BISECT_ITERS):
+    """The kernel's root search (csrc/essential_ransac.cu::bisect_warp) on
+    f32 brackets: rounds of ``levels`` sequential steps, node j of each
+    round's tree (heap order: children 2j + 1 keeping [lo, mid], 2j + 2
+    keeping [mid, hi]) evaluated at the midpoint its path replays, then the
+    walk down the levels with the sequential test. A bracket whose step
+    leaves (lo, hi, flo) as it was, as bits, stops after that round.
+    Returns (lo, hi, flo, steps): steps up to the first such step, that one
+    included, or ``cap``."""
+    nodes = 2 ** levels - 1
+    j = torch.arange(nodes)
+    depth = torch.tensor([(int(x) + 1).bit_length() - 1 for x in j])
+    # c (S, 11) for brackets (S, K): one polynomial for all of a row's
+    cc = c.reshape(c.shape[:-1] + (1,) * (lo.dim() - c.dim() + 2)
+                   + c.shape[-1:]).expand(lo.shape + (nodes, c.shape[-1]))
+    still = torch.zeros(lo.shape, dtype=torch.bool)
+    steps = torch.zeros(lo.shape, dtype=torch.int64)
+    for _ in range(cap // levels):
+        l = lo[..., None].expand(lo.shape + (nodes,)).clone()
+        h = hi[..., None].expand(lo.shape + (nodes,)).clone()
+        for d in range(levels - 1):          # the path from the root
+            on = depth > d
+            bit = (((j + 1) >> (depth - 1 - d).clamp(min=0)) & 1) == 1
+            m = 0.5 * (l + h)
+            l = torch.where(on & bit, m, l)
+            h = torch.where(on & ~bit, m, h)
+        mid = 0.5 * (l + h)
+        fmid = evaluate(cc, mid)
+        node = torch.zeros(lo.shape, dtype=torch.int64)
+        was = still.clone()
+        n_lo, n_hi, n_flo = lo, hi, flo
+        for _ in range(levels):
+            m = torch.gather(mid, -1, node[..., None])[..., 0]
+            f = torch.gather(fmid, -1, node[..., None])[..., 0]
+            take_lo = (n_flo * f) > 0
+            a_lo = torch.where(take_lo, m, n_lo)
+            a_flo = torch.where(take_lo, f, n_flo)
+            a_hi = torch.where(take_lo, n_hi, m)
+            same = _same(a_lo, n_lo) & _same(a_hi, n_hi) & _same(a_flo, n_flo)
+            steps = steps + (~still).to(torch.int64)
+            still = still | same
+            n_lo, n_hi, n_flo = a_lo, a_hi, a_flo
+            node = 2 * node + torch.where(take_lo, 2, 1)
+        # a bracket that had stopped before this round keeps its state
+        lo = torch.where(was, lo, n_lo)
+        hi = torch.where(was, hi, n_hi)
+        flo = torch.where(was, flo, n_flo)
+        if bool(still.all()):
+            break
+    return lo, hi, flo, steps
+
+
+def brackets(c, evaluate=poly_tan_eval_elementwise):
+    """The first 10 sign changes of ``c``'s polynomials (f32 (S, 11)) on the
+    grid, as the kernel brackets them: (lo, hi, flo, valid), each (S,
+    10)."""
+    theta = theta_grid()
+    cg = c[:, None, :].expand(c.shape[0], te._N_GRID, 11)
+    v = evaluate(cg, theta.expand(c.shape[0], te._N_GRID))
+    idx, valid = first_sign_changes(v)
+    lo, hi = theta[idx], theta[idx + 1]
+    flo = torch.gather(v, -1, idx)
+    return lo, hi, flo, valid
+
+
+def five_point_det_b(n_samples=40, seed=0):
+    """det B's coefficients (f32 (S, 11)) of seeded 5-point samples of the
+    fixture scene, from the JAX package's five_point steps (the QR's null
+    space, the Nister constraints, the solve, det B)."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from ov2slam_tpu.geometry import essential as je
+
+    xl, xr, v, i5, i8, focal, err = chip_smoke.pose_ransac_case(
+        seed=seed, n_iters=n_samples)
+
+    def one(x_l, x_r):
+        ones = jnp.ones_like(x_l[..., :1])
+        hl = jnp.concatenate([x_l, ones], axis=-1)
+        hr = jnp.concatenate([x_r, ones], axis=-1)
+        A = (hl[:, :, None] * hr[:, None, :]).reshape(5, 9)
+        q, _ = jnp.linalg.qr(A.T, mode="complete")
+        basis = q[:, 5:9].T.reshape(4, 3, 3)
+        M = je._nister_constraints(basis)
+        P = jnp.linalg.solve(M[:, :10], M[:, 10:])
+        return je._nister_detB(P)[0]
+
+    rows = distinct_rows(i5)
+    c = jax.vmap(one)(jnp.asarray(xl[i5[rows]], jnp.float64),
+                      jnp.asarray(xr[i5[rows]], jnp.float64))
+    return torch.as_tensor(np.array(c), dtype=torch.float32)
+
+
+def _both_searches(c, lo, hi, flo):
+    ev = poly_tan_eval_elementwise
+    cc = c[:, None, :].expand(lo.shape + (11,))
+    want = bisect_sequential(ev, cc, lo, hi, flo)
+    got = bisect_speculative(ev, c, lo, hi, flo)
+    return want, got
+
+
+def test_speculative_bisection_equals_sequential_on_five_point_polys():
+    c = five_point_det_b()
+    lo, hi, flo, valid = brackets(c)
+    assert int(valid.sum()) > 60
+    want, got = _both_searches(c, lo, hi, flo)
+    for w, g in zip(want, got[:3]):
+        assert torch.equal(_same(w, g), torch.ones_like(valid))
+    steps = got[3][valid]
+    # a grid cell's bracket reaches adjacent floats well before 60 steps
+    assert int(steps.max()) <= te._BISECT_ITERS
+    assert float(steps.double().median()) < 40
+
+
+def _hand_poly(roots, scale=1.0):
+    """Lowest-first f32 coefficients (1, 11) of scale * prod (z - r)."""
+    p = np.array([scale], dtype=np.float64)
+    for r in roots:
+        p = np.convolve(p, [-r, 1.0])
+    c = np.zeros(11)
+    c[:len(p)] = p
+    return torch.as_tensor(c[None], dtype=torch.float32)
+
+
+@pytest.mark.parametrize("case", ["root_near_zero", "root_on_grid_point",
+                                  "nan_flo"])
+def test_speculative_bisection_hand_cases(case):
+    theta = theta_grid()
+    if case == "root_near_zero":
+        c = _hand_poly([3e-7, 0.6, -2.5])
+        lo, hi, flo, valid = brackets(c)
+        # the bracket around t = 0, where the floats are densest
+        assert bool(((lo < 0) & (hi > 0) & valid).any())
+    elif case == "root_on_grid_point":
+        z0 = float(torch.tan(theta[300].double()))
+        c = _hand_poly([z0, -0.3, 1.7])
+        lo, hi, flo, valid = brackets(c)
+        # and the cell that starts on that grid point, searched as well
+        lo = torch.cat([lo, theta[300:301][None]], -1)
+        hi = torch.cat([hi, theta[301:302][None]], -1)
+        flo = torch.cat([flo, poly_tan_eval_elementwise(
+            c[:, None, :], theta[300:301][None])], -1)
+    else:
+        c = _hand_poly([0.25, -1.0])
+        lo, hi = theta[None, 200:205], theta[None, 201:206]
+        flo = torch.full_like(lo, float("nan"))
+    want, got = _both_searches(c, lo, hi, flo)
+    for w, g in zip(want, got[:3]):
+        assert bool(_same(w, g).all()), case
+    assert int(got[3].max()) <= te._BISECT_ITERS
+    if case == "nan_flo":
+        # every step keeps [lo, mid]: the bracket closes on lo to within a
+        # float and stops there
+        up = torch.nextafter(lo, torch.full_like(lo, float("inf")))
+        assert bool(_same(got[0], lo).all()) and bool((got[1] <= up).all())
+        assert int(got[3].max()) < te._BISECT_ITERS
+
+
+def test_early_exit_stops_within_the_cap():
+    """The steps a bracket takes to its fixed point, as the speculative
+    search counts them (at most 60), are the sequential search's own: its
+    last step left the bracket as it was, the one before moved it."""
+    c = five_point_det_b(n_samples=12, seed=3)
+    lo, hi, flo, valid = brackets(c)
+    ev = poly_tan_eval_elementwise
+    cc = c[:, None, :].expand(lo.shape + (11,))
+    steps = bisect_speculative(ev, c, lo, hi, flo)[3]
+    assert int(steps.max()) <= te._BISECT_ITERS
+    assert int(steps[valid].min()) >= 2
+
+    def same(a, b):
+        return _same(a[0], b[0]) & _same(a[1], b[1]) & _same(a[2], b[2])
+
+    for k in sorted(set(steps[valid].tolist()))[:6]:
+        sel = valid & (steps == k)
+        if k == te._BISECT_ITERS:
+            continue
+        last = bisect_sequential(ev, cc, lo, hi, flo, steps=k)
+        before = bisect_sequential(ev, cc, lo, hi, flo, steps=k - 1)
+        two_before = bisect_sequential(ev, cc, lo, hi, flo, steps=k - 2)
+        assert bool(same(last, before)[sel].all())
+        assert not bool(same(before, two_before)[sel].any())
+
+
 # ------------------------------------------------------- the PnP mirror #
 
 THREADS, WARPS = 256, 8
@@ -666,6 +902,85 @@ def pnp_mirror(T_wc, points, px, valid, fx, fy, cx, cy, robust_th=5.9915,
             valid & (chi2 <= gate) & dok, c1)
 
 
+def reduce_scatter_sum(x):
+    """(N, V <= 32) row values summed as the PnP kernel now sums them: each
+    of 256 threads its rows in order; in each warp a xor reduce-scatter
+    (offsets 16, 8, 4, 2, 1: a lane with that bit keeps the upper half of
+    its values and the partner's of the same half added, the other half
+    sent), after which lane k holds value k; then the warps in order."""
+    N, V = x.shape
+    acc = torch.zeros((THREADS, 32), dtype=x.dtype)
+    for i in range(0, N, THREADS):
+        blk = x[i:i + THREADS]
+        acc[:len(blk), :V] = acc[:len(blk), :V] + blk
+    lanes = acc.reshape(WARPS, 32, 32)
+    lane = torch.arange(32)
+    width = 32
+    for o in (16, 8, 4, 2, 1):
+        upper = ((lane & o) != 0)[None, :, None]
+        lower_half, upper_half = lanes[..., :o], lanes[..., o:width]
+        keep = torch.where(upper, upper_half, lower_half)
+        send = torch.where(upper, lower_half, upper_half)
+        lanes = keep + send[:, lane ^ o]
+        width = o
+    per_warp = lanes[:, lane, 0]          # lane k: value k
+    total = torch.zeros(32, dtype=x.dtype)
+    for w in range(WARPS):
+        total = total + per_warp[w]
+    return total[:V]
+
+
+@pytest.mark.parametrize("n", [1, 80, 512, 1024])
+def test_reduce_scatter_equals_the_butterflies(n):
+    x = torch.as_tensor(np.random.default_rng(n).normal(size=(n, 28)),
+                        dtype=torch.float32)
+    want = fixed_order_sum(x)
+    got = reduce_scatter_sum(x)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def lu_solve_lanes(A, B):
+    """``lu_solve`` with a column a lane, as the RANSAC kernel's warp takes
+    it: lane k finds the pivot of its column (the first largest) and sends
+    its index, every lane swaps rows k and p of its own column, lane k
+    forms the multipliers by the reciprocal and sends them, the lanes right
+    of k update their columns; then lane j of each right-hand side divides
+    by the diagonal lane k sends and updates the rows above."""
+    S, n, _ = A.shape
+    cols = list(torch.cat([A, B], -1).clone().unbind(-1))   # lane = column
+    for k in range(n):
+        p = k + torch.argmax(cols[k][:, k:].abs(), dim=-1)  # on lane k
+        rows = torch.arange(S)
+        for c in range(len(cols)):                          # every lane
+            rk, rp = cols[c][rows, k].clone(), cols[c][rows, p].clone()
+            cols[c][rows, k], cols[c][rows, p] = rp, rk
+        mult = cols[k][:, k + 1:] * (1.0 / cols[k][:, k:k + 1])
+        cols[k][:, k + 1:] = mult                           # sent
+        for c in range(k + 1, len(cols)):
+            cols[c][:, k + 1:] = (cols[c][:, k + 1:]
+                                  - mult * cols[c][:, k:k + 1])
+    for c in range(n, len(cols)):                           # the rhs lanes
+        for k in range(n - 1, -1, -1):
+            cols[c][:, k] = cols[c][:, k] / cols[k][:, k]
+            cols[c][:, :k] = cols[c][:, :k] - cols[k][:, :k] * \
+                cols[c][:, k:k + 1]
+    return torch.stack(cols[n:], -1)
+
+
+@pytest.mark.parametrize("n,m", [(6, 1), (10, 10)])
+def test_lane_lu_equals_lu_solve(n, m):
+    rng = np.random.default_rng(n)
+    A = rng.normal(size=(32, n, n))
+    A[:, 0, 0] = 0.0                    # the first pivot must be swapped
+    A[:8, 2] = A[:8, 1]                 # ties: the first largest wins
+    A[:8, 2, 1] = -A[:8, 2, 1]
+    B = rng.normal(size=(32, n, m))
+    for dtype in (torch.float32, torch.float64):
+        a, b = (torch.as_tensor(x, dtype=dtype) for x in (A, B))
+        want, got = lu_solve(a, b), lu_solve_lanes(a, b)
+        assert torch.equal(got, want), dtype
+
+
 def test_fixed_order_sum_is_the_sum():
     x = torch.as_tensor(np.random.default_rng(4).normal(size=(700, 5)))
     np.testing.assert_allclose(fixed_order_sum(x).numpy(),
@@ -726,6 +1041,28 @@ def test_cuda_pnp_matches_plain(robust):
     s = chip_smoke.PoseSet.pnp("fixture", *pnp_inputs(dev=dev),
                                robust_th=robust)
     chip_smoke.pnp_check(s)
+
+
+def test_cuda_ransac_is_one_launch_a_call():
+    dev = _card()
+    xl, xr, v, i5, i8, focal, err = ransac_inputs(dev=dev)
+    assert te.KERNELS_PER_LAUNCH == 1
+    n0 = te.essential_ransac.launches
+    te.essential_ransac(None, xl, xr, v, focal, err, i5.shape[0], i5, i8)
+    torch.cuda.synchronize()
+    assert te.essential_ransac.launches - n0 == 1
+
+
+def test_cuda_two_streams_equal_their_calls_alone():
+    """A front-end-sized and a loop-closer-sized call issued together on
+    two streams (the kernel's selection ticket is kept per stream), each
+    equal bit for bit to its call alone, with every ticket back at 0."""
+    dev = _card()
+    small = chip_smoke.PoseSet.ransac("fixture", *ransac_inputs(dev=dev))
+    big = chip_smoke.PoseSet.ransac("many samples", *ransac_inputs(
+        dev=dev, seed=2, n=128, n_iters=1000))
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    assert chip_smoke.two_stream_rounds((small, big), streams, 10) == (10, 10)
 
 
 def test_cuda_empty_launches_nothing():

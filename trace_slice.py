@@ -21,9 +21,8 @@ device events of only some of the hand kernels' ctypes launches, so those
 are counted apart (:class:`HandKernelTimer`): each launch call of a
 ``csrc`` library runs between two CUDA events on its stream and is charged
 to the scope and port function open around it, with the kernels it
-launches (three for ``essential_ransac``; the events' span also holds the
-few µs between them); their device events in the trace are left out of the
-totals and the groups. The line's ``hand_kernels`` gives each hand
+launches (one each); their device events in the trace are left out of
+the totals and the groups. The line's ``hand_kernels`` gives each hand
 kernel's launches and device ms per frame so measured, beside the device
 events the trace holds.
 
@@ -169,8 +168,7 @@ def main(argv) -> int:
 # starts
 HAND_KERNELS = {
     "klt_track": ("klt_kernel",),
-    "essential_ransac": ("ransac_hypotheses_kernel", "ransac_score_kernel",
-                         "ransac_select_kernel"),
+    "essential_ransac": ("essential_ransac_kernel",),
     "pnp_refine": ("pnp_refine_kernel",),
     "hamming_score": ("score_kernel",),
 }
@@ -190,8 +188,7 @@ def _open_stack():
 
 def hand_kernel_of(name: str):
     """The library whose hand kernel a device event ``name`` is, or None
-    (``score_kernel`` alone is the scorer's: the RANSAC's is
-    ``ransac_score_kernel``)."""
+    (a name inside a longer identifier is not one)."""
     m = _HAND_RE.search(name)
     if m is None:
         return None
