@@ -808,13 +808,14 @@ def run_slice(name: str, dev, seq=None):
                index_rows=len(slam.loop_closer.index.kf_ids),
                lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
                index_cube_bytes=slam.loop_closer.index._cube.numel(),
-               **klt, **pose, **graph, inverse_depth=cfg.use_inv_depth)
+               **klt, **pose, **graph, inverse_depth=cfg.use_inv_depth,
+               stereo=cfg.stereo)
     print(f"[slice {name}] " + json.dumps(res), flush=True)
     print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
           flush=True)
     gate_klt_launches(name, res)
     gate_pose_launches(name, res)
-    gate_graphs(name, res, cfg.use_inv_depth)
+    gate_graphs(name, res, cfg.use_inv_depth, cfg.stereo)
     if launches <= 0:
         fail(f"slice {name}: the scorer kernel never launched")
     if plain_cuda != 0:
@@ -1081,7 +1082,8 @@ def run_async_slice(name: str, dev, seq=None):
                map_lock_wait_ms={k: 1e3 * v for k, v in
                                  sorted(waits.wait_s.items())},
                map_lock_handoffs=slam.map_lock.handoffs, **klt,
-               **pose, **graph, inverse_depth=cfg.use_inv_depth)
+               **pose, **graph, inverse_depth=cfg.use_inv_depth,
+               stereo=cfg.stereo)
     if slam.loop_closer is not None:
         q = prof.stats().get("4.LC_QueryIndex", dict(n=0, mean_ms=0.0))
         res.update(index_rows=len(slam.loop_closer.index.kf_ids),
@@ -1112,7 +1114,7 @@ def gate_async(r, b=None) -> None:
         fail(f"slice {name}: the plain scorer ran on cuda")
     gate_klt_launches(name, r)
     gate_pose_launches(name, r)
-    gate_graphs(name, r, r["inverse_depth"])
+    gate_graphs(name, r, r["inverse_depth"], r["stereo"])
     sd = r["sync_debug"]
     print(f"[slice {name}] synchronizing calls reported by "
           f"set_sync_debug_mode('warn') on the front end's thread during "
@@ -1632,7 +1634,7 @@ def gate_slice_h(r) -> None:
         fail(f"slice H {part}: the plain scorer ran on cuda")
     gate_klt_launches(f"H {part}", r)
     gate_pose_launches(f"H {part}", r)
-    gate_graphs(f"H {part}", r, r["inverse_depth"])
+    gate_graphs(f"H {part}", r, r["inverse_depth"], r["stereo"])
     if part == "kitti" and r["scorer_launches"] < 1:
         fail("slice H kitti: the scorer kernel never launched under the CLI")
     if r["worker_errors"]:
@@ -2247,7 +2249,8 @@ POSE_TH_BAND = 1e-4       # mask rows may differ this near the threshold
 PNP_POSE_TOL = 1e-4       # T_out per component
 PNP_GATE_BAND = 1e-4      # mask rows may differ this near the chi2 gate
 POSE_FRAME = 40           # slice B's front-end call held and timed
-GRAPH_CALL = 10           # slice B's local BA and detection replayed
+GRAPH_CALL = 10           # slice B's graph steps' call replayed
+PREWARM_STEPS = 2         # the pre-warm check's capacity above slice B's
 
 
 def pose_ransac_case(seed: int = 0, n: int = 120, n_iters: int = 40):
@@ -2595,41 +2598,70 @@ def pose_counts():
                                  + pnp_refine.pnp_refine_plain.cuda_runs))
 
 
-def reset_graph_counts() -> None:
-    """Zero the CUDA-graph steps' call counters (local BA, keyframe
-    detection)."""
-    from ov2slam_torch.models import frontend_step
+def graph_steps():
+    """(key, counters) of every step the main path replays as CUDA graphs:
+    local BA (``GraphedTwoPass``'s counters, packed solves included),
+    keyframe detection, and every mapper's stereo mapping and temporal
+    triangulation."""
+    from ov2slam_torch.models import frontend_step, mapper_step
     from ov2slam_torch.solvers import ba_invdepth
 
-    for g in (ba_invdepth.GraphedTwoPass, frontend_step.detect_describe):
+    return (("ba_graph", ba_invdepth.GraphedTwoPass),
+            ("detect_graph", frontend_step.detect_describe.counts),
+            ("stereo_graph", mapper_step.stereo_step_counts),
+            ("temporal_graph", mapper_step.temporal_step_counts))
+
+
+def reset_graph_counts() -> None:
+    """Zero the CUDA-graph steps' call counters and local BA's pre-warm
+    counts."""
+    from ov2slam_torch.models.estimator import Estimator
+
+    for _, g in graph_steps():
         g.eager = g.captures = g.replays = 0
+    Estimator.prewarms = Estimator.prewarm_failures = 0
 
 
 def graph_counts():
     """The counters :func:`reset_graph_counts` zeroes: each step's calls
     that ran eagerly (a shape's first), captured (its second; it then
-    replays) and replayed."""
-    from ov2slam_torch.models import frontend_step
-    from ov2slam_torch.solvers import ba_invdepth
+    replays) and replayed, and local BA's pre-warms (each builds the
+    graphs of the next landmark capacity) and failed pre-warms."""
+    from ov2slam_torch.models.estimator import Estimator
 
     out = {}
-    for key, g in (("ba_graph", ba_invdepth.GraphedTwoPass),
-                   ("detect_graph", frontend_step.detect_describe)):
+    for key, g in graph_steps():
         out.update({f"{key}_eager": g.eager, f"{key}_captures": g.captures,
                     f"{key}_replays": g.replays})
+    out.update(ba_prewarms=Estimator.prewarms,
+               ba_prewarm_failures=Estimator.prewarm_failures)
     return out
 
 
-def gate_graphs(name: str, counts, inverse_depth: bool) -> None:
-    """A SLAM slice detects its keyframes, and solves its inverse-depth
-    local BA windows, through their CUDA graphs: each replays at least
-    once (a shape's first call runs eagerly, its second captures)."""
+def gate_graphs(name: str, counts, inverse_depth: bool,
+                stereo: bool) -> None:
+    """A SLAM slice detects its keyframes, solves its inverse-depth local
+    BA windows and (stereo) maps its keyframes through their CUDA graphs:
+    each replays at least once (a shape's first call runs eagerly, its
+    second captures). Temporal triangulation runs only on keyframes with
+    candidates: it must replay once it ran twice. No pre-warm failed."""
     if counts["detect_graph_replays"] < 1:
         fail(f"slice {name}: keyframe detection never replayed its graph "
              f"({counts})")
     if inverse_depth and counts["ba_graph_replays"] < 1:
         fail(f"slice {name}: local BA never replayed its graphs "
              f"({counts})")
+    if stereo and counts["stereo_graph_replays"] < 1:
+        fail(f"slice {name}: stereo mapping never replayed its graph "
+             f"({counts})")
+    for key in ("stereo_graph", "temporal_graph"):
+        calls = sum(counts[f"{key}_{k}"] for k in ("eager", "replays"))
+        if calls >= 2 and counts[f"{key}_replays"] < 1:
+            fail(f"slice {name}: {key} ran {calls} times and never "
+                 f"replayed ({counts})")
+    if counts["ba_prewarm_failures"] != 0:
+        fail(f"slice {name}: {counts['ba_prewarm_failures']} local BA "
+             f"pre-warms failed")
 
 
 def gate_pose_launches(name: str, counts) -> None:
@@ -2770,33 +2802,48 @@ class PoseCapture:
 
 class GraphCapture:
     """Within ``with``, records the inputs of the run's ``GRAPH_CALL``-th
-    local BA solve (``models.estimator``) and keyframe detection
-    (``models.frontend``), the two steps the main path replays as CUDA
-    graphs, for :func:`phase_graphs`."""
+    call (or its last, where it made fewer) of each step the main path
+    replays as CUDA graphs: the local BA solve (``Estimator.solve_packed``,
+    with its estimator), keyframe detection (``models.frontend``), stereo
+    mapping and temporal triangulation (the steps each mapper makes,
+    ``models.mapper.map_steps``), for :func:`phase_graphs`. Only the
+    ``GRAPH_CALL``-th call's tensors are copied; an earlier call's are
+    kept by reference (they stand for a step that made fewer)."""
 
     def __init__(self, nth: int = GRAPH_CALL):
         self.nth = nth
         self.calls = {}
         self.inputs = {}
 
-    def _wrap(self, module, name, orig):
+    def _recording(self, name, fn):
         import torch
 
         def wrapped(*args, **kw):
             n = self.calls[name] = self.calls.get(name, 0) + 1
-            if n == self.nth:
+            if n <= self.nth:
                 self.inputs[name] = (
-                    [a.detach().clone() if isinstance(a, torch.Tensor)
-                     else a for a in args],
+                    [a.detach().clone() if n == self.nth
+                     and isinstance(a, torch.Tensor) else a for a in args],
                     {k: v for k, v in kw.items() if k != "between_iters"})
-            return orig(*args, **kw)
+            return fn(*args, **kw)
         return wrapped
 
-    def __enter__(self):
-        from ov2slam_torch.models import estimator, frontend
+    def _wrap(self, module, name, orig):
+        if name != "map_steps":
+            return self._recording(name, orig)
 
-        self._swap = Swap([(estimator, "ba_solve_invdepth_two_pass"),
-                           (frontend, "detect_describe")], self._wrap)
+        def map_steps():
+            labels = ("stereo_map_step", "temporal_step")
+            return tuple(self._recording(label, step)
+                         for label, step in zip(labels, orig()))
+        return map_steps
+
+    def __enter__(self):
+        from ov2slam_torch.models import estimator, frontend, mapper
+
+        self._swap = Swap([(estimator.Estimator, "solve_packed"),
+                           (frontend, "detect_describe"),
+                           (mapper, "map_steps")], self._wrap)
         self._swap.__enter__()
         return self
 
@@ -2827,63 +2874,160 @@ def host_device_ms(fn, runs: int):
 
 
 def phase_graphs(dev, captured):
-    """Slice B's ``GRAPH_CALL``-th local BA solve and keyframe detection,
+    """Slice B's ``GRAPH_CALL``-th local BA solve (unpacked and packed),
+    keyframe detection, stereo mapping and temporal triangulation,
     recorded by :class:`GraphCapture`, each through a fresh graph step
     three times: eagerly (a shape's first call), captured and replayed,
-    replayed. Both replays must equal the eager call bit for bit. Times
-    (:func:`host_device_ms`) of the eager step (the same inputs, padded
-    as the graph pads them) and of a replay, and the step's CUDA kernels
-    a call and their summed device time (torch.profiler, eagerly: a
-    replay runs the same kernels). Returns the rows."""
+    replayed. Both replays must equal the eager call bit for bit, and the
+    packed solve the unpacked one. Times (:func:`host_device_ms`) of the
+    eager step (the same inputs, padded as the graph pads them) and of a
+    replay, and the step's CUDA kernels a call and their summed device
+    time (torch.profiler, eagerly: a replay runs the same kernels; the
+    stereo step's count adds its KLT launch, which the trace may not
+    hold). Then the pre-warm check (:func:`prewarm_check`). Returns the
+    rows."""
+    import numpy as np
     import torch
     from torch.utils import _pytree as pytree
 
     from ov2slam_torch.graphs import GraphedStep
-    from ov2slam_torch.models import frontend_step
-    from ov2slam_torch.solvers import ba_invdepth
+    from ov2slam_torch.models import frontend_step, mapper_step
+    from ov2slam_torch.solvers import ba_invdepth as bi
 
     t0 = time.perf_counter()
-    missing = {"ba_solve_invdepth_two_pass", "detect_describe"} - set(
-        captured.inputs)
+    missing = {"solve_packed", "detect_describe", "stereo_map_step",
+               "temporal_step"} - set(captured.inputs)
     if missing:
-        fail(f"graphs: slice B made fewer than {captured.nth} calls of "
-             f"{sorted(missing)}")
-    a, kw = captured.inputs["ba_solve_invdepth_two_pass"]
-    args, prm = tuple(a[:10]), a[10]
+        fail(f"graphs: slice B made no call of {sorted(missing)}")
+    (est, prob, rho, ray, valid), _ = captured.inputs["solve_packed"]
+    kw = est._solve_kw()
     iters = (kw["iters_robust"], kw["iters_l2"])
-    run = ba_invdepth.GraphedTwoPass(args, prm, kw["robust_th"], *iters)
+    Kw, Lw, O = len(prob.kf_poses), len(rho), len(prob.obs_kf)
+    cap = bi.landmark_capacity(Lw, O)
+    flat = torch.as_tensor(bi.pack_ba_invdepth(prob, rho, ray, valid),
+                           device=dev)
+    prm = est.params
+    args = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in (prob.kf_poses, prob.kf_fixed, rho,
+                           prob.lm_anchor, ray, prob.obs_kf, prob.obs_lm,
+                           prob.obs_px, prob.obs_cam, valid))
+    run = bi.GraphedTwoPass(args, prm, kw["robust_th"], *iters)
+    runners = {}         # the packed solve's own: eager, captured, replayed
+
+    def packed(cache):
+        return bi.ba_invdepth_packed(flat, prm, Kw, Lw, O, runners=cache,
+                                     **kw)
     d_args, d_kw = captured.inputs["detect_describe"]
     step = GraphedStep(frontend_step.fused_detect_describe)
+    s_args, s_kw = captured.inputs["stereo_map_step"]
+    stereo = GraphedStep(mapper_step._stereo_graph_fn)
+    t_args, t_kw = captured.inputs["temporal_step"]
+    temporal = GraphedStep(mapper_step.fused_temporal_step)
+    ba_shape = dict(keyframes=Kw, landmarks=Lw, landmark_capacity=cap,
+                    observations=int(valid.sum()), iterations=sum(iters))
     cases = (
-        ("local BA", lambda: run(args), lambda: ba_invdepth._two_pass(
-            run.inputs, prm, kw["robust_th"], *iters, None),
-         dict(keyframes=int(args[0].shape[0]),
-              landmarks=int(args[2].shape[0]),
-              landmark_capacity=int(run.inputs[2].shape[0]),
-              observations=int(args[9].sum()), iterations=sum(iters))),
+        ("local BA", lambda: run(args), lambda: bi._two_pass(
+            run.inputs, prm, kw["robust_th"], *iters, None), ba_shape),
+        ("packed local BA", lambda: packed(runners),
+         lambda: packed({}), dict(ba_shape, floats=flat.numel())),
         ("keyframe detection", lambda: step(*d_args, **d_kw),
          lambda: frontend_step.fused_detect_describe(*d_args, **d_kw),
          dict(image=list(d_args[0].shape), detector=d_kw["detector"],
-              max_out=d_kw["max_out"])))
-    rows = []
+              max_out=d_kw["max_out"])),
+        ("stereo mapping", lambda: stereo(*s_args, **s_kw),
+         lambda: mapper_step._stereo_graph_fn(*s_args, **s_kw),
+         dict(image=list(s_args[0].shape), levels=len(s_args) - 2,
+              keypoints=int(s_args[-1].shape[0] - 1),
+              rectified=bool(s_kw["rectified"]))),
+        ("temporal triangulation", lambda: temporal(*t_args, **t_kw),
+         lambda: mapper_step.fused_temporal_step(*t_args, **t_kw),
+         dict(rows=int(t_args[0].shape[0]),
+              candidates=int((t_args[0][:, 18] > 0.5).sum()))))
+    rows, outs_by = [], {}
     for label, call, eager, shape in cases:
         outs = [pytree.tree_leaves(call()) for _ in range(3)]
         torch.cuda.synchronize()
         if not all(_bits_equal(x, y) for o in outs[1:]
                    for x, y in zip(o, outs[0])):
             fail(f"graphs: {label}: a replay differs from the eager call")
+        outs_by[label] = outs[0]
         e_host, e_ms = host_device_ms(eager, 5)
         r_host, r_ms = host_device_ms(call, 20)
         kernels, _, kernel_ms = kernel_launches_per_call(eager)
+        if label == "stereo mapping":
+            kernels, klt_per_call, _ = klt_kernels_per_call(eager)
+            shape = dict(shape, klt_launches_per_call=klt_per_call)
         row = dict(step=label, **shape, bit_equal=True,
                    eager_host_ms=e_host, eager_ms=e_ms,
                    replay_host_ms=r_host, replay_ms=r_ms,
                    kernels_per_call=kernels, kernel_ms=kernel_ms)
         print("[graphs] " + json.dumps(row), flush=True)
         rows.append(row)
+    poses, pos, _, inlier, cost = outs_by["local BA"]
+    want = bi.pack_ba_out(poses, pos, inlier, cost)
+    if not _bits_equal(outs_by["packed local BA"][0], want):
+        fail("graphs: the packed local BA differs from the unpacked one")
+    rows.append(prewarm_check(est, prob, rho, ray, valid, dev))
     print(f"[graphs] phase passed in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return rows
+
+
+def prewarm_check(est, prob, rho, ray, valid, dev):
+    """Slice B's estimator pre-warms a landmark capacity no slice reaches
+    (``PREWARM_STEPS`` steps of 256 above slice B's window's; a slice's
+    windows stay far below their capacity, so none queues a pre-warm):
+    slice B's window grown by landmark rows no observation names, into
+    that capacity. The first
+    real solve there must replay — no eager run and no capture —
+    bit-equal to an eager solve of the same vector, and no pre-warm may
+    have failed. Returns the row."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.models.estimator import Estimator
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    Kw, O = len(prob.kf_poses), len(prob.obs_kf)
+    L = bi.landmark_capacity(len(rho), O) + 256 * PREWARM_STEPS
+    Lw = L - 100
+    grown, rho2, ray2 = bi.pad_landmarks(prob, rho, ray, Lw)
+    before = (Estimator.prewarms, Estimator.prewarm_failures)
+    t0 = time.perf_counter()
+    est._prewarm_bucket(L, (grown, rho2, ray2, valid))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    g = bi.GraphedTwoPass
+    counts0 = (g.eager, g.captures, g.replays)
+    t0 = time.perf_counter()
+    poses, points, inlier = est.solve_packed(grown, rho2, ray2, valid)
+    solve_ms = 1e3 * (time.perf_counter() - t0)
+    counts1 = (g.eager, g.captures, g.replays)
+    kw = est._solve_kw()
+    flat = torch.as_tensor(bi.pack_ba_invdepth(grown, rho2, ray2, valid),
+                           device=dev)
+    ref = bi.ba_invdepth_packed(      # a new runner's first solve: eager
+        flat, est.params, Kw, Lw, O, runners={}, **kw).cpu().numpy()
+    equal = (np.array_equal(poses, ref[:Kw * 7].reshape(Kw, 7))
+             and np.array_equal(points, ref[Kw * 7:Kw * 7 + Lw * 3]
+                                .reshape(Lw, 3))
+             and np.array_equal(inlier, ref[Kw * 7 + Lw * 3:-1] > 0.5))
+    row = dict(step="pre-warmed local BA", landmarks=Lw,
+               landmark_capacity=L, prewarms=Estimator.prewarms - before[0],
+               prewarm_failures=Estimator.prewarm_failures,
+               prewarm_s=warm_s, first_solve_ms=solve_ms,
+               first_solve=dict(zip(("eager", "captures", "replays"),
+                                    np.subtract(counts1, counts0).tolist())),
+               bit_equal=equal)
+    print("[graphs] " + json.dumps(row), flush=True)
+    if row["prewarm_failures"] or row["prewarms"] != 1:
+        fail(f"graphs: local BA pre-warm: {row}")
+    if row["first_solve"] != dict(eager=0, captures=0, replays=1):
+        fail(f"graphs: the first solve after the pre-warm did not replay "
+             f"({row})")
+    if not equal:
+        fail("graphs: the pre-warmed solve differs from an eager solve")
+    return row
 
 
 def pose_fixture_sets(dev):

@@ -262,3 +262,17 @@ class PlaceIndex:
             return -1, 0.0
         return self.kf_ids[island_center], best_score
 
+
+
+def bit_signature(desc: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Cheap (256,) bit-frequency signature of a keyframe's valid BRIEF
+    descriptors ((N, 8) uint32), centred and unit-norm (kept for
+    diagnostics); zeros when no descriptor is valid."""
+    if valid.sum() == 0:
+        return np.zeros(256, np.float32)
+    d = desc[valid]
+    bits = np.unpackbits(
+        d.view(np.uint8), bitorder="little").reshape(len(d), 256)
+    sig = bits.mean(axis=0).astype(np.float32) - 0.5
+    n = np.linalg.norm(sig)
+    return sig / n if n > 0 else sig

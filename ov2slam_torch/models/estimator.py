@@ -6,18 +6,32 @@ Port of ``ov2slam_tpu/models/estimator.py`` (the reference's `Estimator`,
 xyz points otherwise — and culls redundant keyframes (`mapFiltering`,
 `:101-183`).
 
-BA is a bounded solve (fixed iterations) on the estimator's device.
+BA is a bounded solve (fixed iterations) on the estimator's device. The
+inverse-depth local BA is the JAX package's single-buffer transport: the
+problem packed into one f32 vector (one upload through a pinned buffer),
+:func:`~ov2slam_torch.solvers.ba_invdepth.ba_invdepth_packed` (CUDA graph
+replays on a GPU), one vector read back; when a window nears its landmark
+capacity, the graphs of the next capacity are built ahead of need.
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from ..solvers.ba import ba_solve_two_pass, make_ba_params
-from ..solvers.ba_invdepth import ba_solve_invdepth_two_pass, invdepth_state
+from ..solvers.ba_invdepth import (GraphedTwoPass, ba_invdepth_packed,
+                                   ba_solve_invdepth_two_pass, graphed,
+                                   invdepth_state, landmark_capacity,
+                                   pack_ba_invdepth, pad_landmarks,
+                                   unpack_ba_invdepth)
 from ..utils.config import SlamConfig
 from ..utils.profiler import Profiler
+from .frontend import Staging
+
+log = logging.getLogger(__name__)
 
 
 def _on(params):
@@ -59,12 +73,104 @@ def solve_problem_xyz(prob, params, cfg, iters=None, between_iters=None):
 
 
 class Estimator:
+    # over every estimator: pre-warms that built their graphs, and those
+    # that raised (each logged with its traceback)
+    prewarms = prewarm_failures = 0
+
     def __init__(self, cfg: SlamConfig, cam_l, cam_r, map_store):
         self.cfg = cfg
         self.map = map_store
         self.params = make_ba_params(cam_l, cam_r)
         self.prof = Profiler.instance()
         self.lc_kf_id = -1   # loop-closure-protected KF (`estimator.cpp:129-131`)
+        self.device = self.params.fx.device
+        # pinned host buffers of local BA's one upload and one readback
+        self._stage = Staging(self.device, 2)
+        # local BA's graph runners (GraphedTwoPass): they read this
+        # estimator's params, and go with it
+        self._ba_runners = {}
+        self._warmed = set()     # landmark capacities used or pre-warmed
+        self._next_warm = None   # (capacity, problem) for prewarm_next
+
+    def _solve_kw(self):
+        cfg = self.cfg
+        return dict(robust_th=float(cfg.robust_mono_th),
+                    iters_robust=cfg.ba_iters,
+                    iters_l2=3 if cfg.apply_l2_after_robust else 0)
+
+    def _prewarm_bucket(self, Lcap: int, problem) -> None:
+        """Build local BA's graphs for landmark capacity ``Lcap``: an eager
+        solve, then the capture (:meth:`GraphedTwoPass.warm`), of
+        ``problem`` ((prob, rho, ray, obs_valid), a window) grown to
+        ``Lcap`` landmark rows that no observation names, so the solve is
+        well posed. The first real solve at ``Lcap`` then replays.
+
+        Counterpart of the JAX package's ahead-of-need compile. That
+        compile runs on a background thread, free of the interpreter's
+        lock; this build is Python launching kernels, and on a thread it
+        contended with the frames for that lock (measured on the H100 by
+        chip_smoke, PERF.md §6), so it runs on the calling thread. Only
+        for a window that replays graphs, once per capacity; a failure is
+        logged and counted (``Estimator.prewarm_failures``), never
+        swallowed."""
+        prob, rho, ray, obs_valid = problem
+        Kw, O = len(prob.kf_poses), len(prob.obs_kf)
+        if (not self.cfg.use_inv_depth or not graphed(self.device, Kw)
+                or Lcap in self._warmed):
+            return
+        self._warmed.add(Lcap)
+        try:
+            kw = self._solve_kw()
+            flat = torch.from_numpy(pack_ba_invdepth(
+                *pad_landmarks(prob, rho, ray, Lcap), obs_valid))
+            args = unpack_ba_invdepth(flat.to(self.device), Kw, Lcap, O)
+            GraphedTwoPass.runner(
+                args, self.params, kw["robust_th"], kw["iters_robust"],
+                kw["iters_l2"], self._ba_runners).warm(args)
+            Estimator.prewarms += 1
+        except Exception:
+            log.exception("local BA pre-warm of capacity %d failed", Lcap)
+            Estimator.prewarm_failures += 1
+
+    def prewarm_next(self) -> None:
+        """Pre-warm the next landmark capacity when :meth:`solve_packed`
+        queued it. The managers call this where the solving thread holds
+        up the fewest frames: the asynchronous worker when its queue is
+        empty, the synchronous manager after a keyframe's local BA."""
+        if self._next_warm is not None:
+            nxt, self._next_warm = self._next_warm, None
+            self._prewarm_bucket(*nxt)
+
+    def solve_packed(self, prob, rho, ray, obs_valid, between_iters=None):
+        """The inverse-depth two-pass solve of ``prob`` by the packed
+        transport: one upload, :func:`ba_invdepth_packed`, one readback.
+        On a GPU, a window whose landmarks come within one step (256) of
+        its graphs' capacity queues the next capacity's pre-warm
+        (:meth:`prewarm_next`): the next window may cross into it.
+        (Pre-warming at a capacity's first use, as the JAX package
+        compiles, costs 0.15-0.3 s of host time a run that the card's
+        slices, far below the 4096-row capacity, never use; on the worker
+        it dropped frames of paced arrival, PERF.md §6.) Returns numpy
+        (poses (Kw, 7), points (Lw, 3), inlier (O,))."""
+        Kw, Lw, O = len(prob.kf_poses), len(rho), len(prob.obs_kf)
+        k = self._stage.next()
+        flat = self._stage.upload(
+            k, "ba_in", pack_ba_invdepth(prob, rho, ray, obs_valid))
+        out = ba_invdepth_packed(flat, self.params, Kw, Lw, O,
+                                 between_iters=between_iters,
+                                 runners=self._ba_runners,
+                                 **self._solve_kw())
+        self._stage.download(k, "ba_out", out)
+        self._stage.record(k)
+        res = self._stage.read(k, "ba_out")
+        if graphed(self.device, Kw):
+            L = landmark_capacity(Lw, O)
+            self._warmed.add(L)
+            if Lw + 256 > L and L + 256 not in self._warmed:
+                self._next_warm = (L + 256, (prob, rho, ray, obs_valid))
+        return (res[:Kw * 7].reshape(Kw, 7),
+                res[Kw * 7:Kw * 7 + Lw * 3].reshape(Lw, 3),
+                res[Kw * 7 + Lw * 3:-1] > 0.5)
 
     # ------------------------------------------------------------------ #
 
@@ -127,9 +233,8 @@ class Estimator:
             # anchored inverse-depth parameterization (`buse_inv_depth`,
             # KSE3AnchInvDepth factors, `optimizer.cpp:207-290`)
             rho, ray, obs_valid = invdepth_state(prob, self.params)
-            poses, points, _, inlier, _ = solve_problem(
-                prob, rho, ray, obs_valid, self.params, cfg,
-                between_iters=between_iters)
+            poses, points, inlier = self.solve_packed(
+                prob, rho, ray, obs_valid, between_iters=between_iters)
         else:
             poses, points, inlier, _ = solve_problem_xyz(
                 prob, self.params, cfg, between_iters=between_iters)

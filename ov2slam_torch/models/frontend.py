@@ -90,6 +90,27 @@ class Staging:
         buf.numpy()[...] = arr
         return buf.to(self.device, non_blocking=True)
 
+    def upload_parts(self, k: int, name: str, arrs):
+        """``arrs`` on the device as one copy: slot ``k``'s byte buffer
+        ``name`` holds them one after another (each at a 16-byte offset),
+        and each comes back as a view of the uploaded bytes."""
+        arrs = [np.ascontiguousarray(a) for a in arrs]
+        offs, n = [], 0
+        for a in arrs:
+            offs.append(n)
+            n += -(-a.nbytes // 16) * 16
+        if self.cuda:
+            buf = self._host(k, name, (n,), torch.uint8)
+        else:
+            buf = torch.empty(n, dtype=torch.uint8)
+        host = buf.numpy()
+        for a, o in zip(arrs, offs):
+            host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = (buf.to(self.device, non_blocking=True) if self.cuda
+               else buf)
+        return [dev[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+                .view(a.shape) for a, o in zip(arrs, offs)]
+
     def download(self, k: int, name: str, t: torch.Tensor) -> None:
         """Start the copy of ``t`` into slot ``k``'s buffer ``name``."""
         if not self.cuda:

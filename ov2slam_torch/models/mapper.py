@@ -22,9 +22,9 @@ from ..ops.matching import projection_match
 from ..utils import lie_np
 from ..utils.config import SlamConfig
 from ..utils.profiler import Profiler
-from .frontend import to_u8
+from .frontend import Staging, to_u8
 from .frontend_step import CalibArrays
-from .mapper_step import fused_stereo_map_step, fused_temporal_step
+from .mapper_step import map_steps, pack_stereo_state, pack_temporal_state
 
 
 class Mapper:
@@ -37,6 +37,12 @@ class Mapper:
         self.prof = Profiler.instance()
         self.device = cam_l.device
         self._calib_l = CalibArrays.from_camera(cam_l)
+        # pinned host buffers of the keyframe steps' one upload and one
+        # readback each (a slot is rewritten only after its copies ended)
+        self._stage = Staging(self.device, 2)
+        # the keyframe steps, graphed on a GPU; their graphs read this
+        # mapper's calibration and extrinsics
+        self._stereo_step, self._temporal_step = map_steps()
         if cam_r is not None:
             self._calib_r = CalibArrays.from_camera(cam_r)
             # right-in-left extrinsic as numpy + device-resident copies
@@ -50,14 +56,22 @@ class Mapper:
             rot_angle = float(np.linalg.norm(
                 lie_np.so3_log(self.T_lr[:4])))
             t = self.T_lr[4:7]
-            self._rectified = (rot_angle < 1e-3
-                               and abs(t[0]) > 10 * (abs(t[1]) + abs(t[2]) + 1e-12))
+            self._rectified = bool(
+                rot_angle < 1e-3
+                and abs(t[0]) > 10 * (abs(t[1]) + abs(t[2]) + 1e-12))
         else:
             self.T_lr = None
             self._rectified = False
 
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
+
+    def _read(self, k: int, name: str, out: torch.Tensor) -> np.ndarray:
+        """``out`` on the host: one copy through staging slot ``k``, which
+        also orders the slot's upload before the slot is written again."""
+        self._stage.download(k, name, out)
+        self._stage.record(k)
+        return self._stage.read(k, name)
 
     # ------------------------------------------------------------------ #
 
@@ -86,7 +100,9 @@ class Mapper:
         (`MapManager::stereoMatching` `map_manager.cpp:367-611` +
         `Mapper::triangulateStereo` `mapper.cpp:346-461`): prior-guided
         fb-KLT left->right, Sampson gate, midpoint triangulation of new
-        matches — full-capacity masked arrays, one readback."""
+        matches — full-capacity masked arrays: one packed upload (the
+        right image and :func:`pack_stereo_state`'s state), the step (a
+        CUDA graph replay on a GPU), one packed readback."""
         import contextlib
 
         lock = lock or contextlib.nullcontext()
@@ -99,19 +115,19 @@ class Mapper:
             valid = (lmids >= 0) & m.lm_valid[ids]
             is3d = valid & m.lm_is3d[ids]
             lm_pos = np.where(is3d[:, None], m.lm_pos[ids], 0.0)
-            px = m.obs_px[kfid].astype(np.float32)
-            T_wc = m.kf_poses[kfid].astype(np.float32)
+            state = pack_stereo_state(m.obs_px[kfid], lm_pos, valid, is3d,
+                                      m.kf_poses[kfid])
+        k = self._stage.next()
         if isinstance(right_img, np.ndarray):
-            right_up = self._dev(to_u8(right_img))
+            right_up, state = self._stage.upload_parts(
+                k, "stereo_in", (to_u8(right_img), state))
         else:
             right_up = right_img
-        f32 = np.float32
-        out = fused_stereo_map_step(
-            left_pyr, right_up, self._dev(px),
-            self._dev(lm_pos.astype(f32)), self._dev(valid),
-            self._dev(is3d), self._dev(T_wc),
-            self._T_lr_dev, self._E_lr_dev,
-            self._calib_l, self._calib_r,
+            state = self._stage.upload(k, "stereo_state", state)
+        out = self._stereo_step(
+            *left_pyr, right_up, state,
+            T_lr=self._T_lr_dev, E_lr=self._E_lr_dev,
+            calib_l=self._calib_l, calib_r=self._calib_r,
             clahe_val=float(cfg.clahe_val), klt_err=float(cfg.klt_err),
             max_fbklt_dist=float(cfg.max_fbklt_dist),
             max_reproj_err=float(cfg.max_reproj_err),
@@ -119,12 +135,12 @@ class Mapper:
             iters=cfg.max_iter, use_clahe=cfg.use_clahe,
             rectified=self._rectified,
             fisheye_r=self.cam_r.model == "fisheye")
-        res = {k: v.cpu().numpy() for k, v in out.items()}
-        rpx = res["rpx"]
-        pts_w = res["pts_w"]
-        stereo_ok = res["stereo_ok"]
-        tri_ok = res["tri_ok"]
-        tri_cand = res["tri_cand"]
+        packed = self._read(k, "stereo_out", out)
+        rpx = packed[:, 0:2]
+        pts_w = packed[:, 2:5]
+        stereo_ok = packed[:, 5] > 0.5
+        tri_ok = packed[:, 6] > 0.5
+        tri_cand = packed[:, 7] > 0.5
         with lock:
             # stale-slot guards: the KF may have been culled+recycled and
             # individual observations removed while the solve ran unlocked
@@ -148,7 +164,9 @@ class Mapper:
     def triangulate_temporal(self, kfid: int, lock=None):
         """Triangulate 2D landmarks against their first observing keyframe
         (`Mapper::triangulateTemporal`, `mapper.cpp:191-344`) — all
-        candidates in one fixed-shape step with per-row anchor poses."""
+        candidates in one fixed-shape step with per-row anchor poses: one
+        (N, 19) upload, the step (a graph replay on a GPU), one (N, 4)
+        readback."""
         import contextlib
 
         lock = lock or contextlib.nullcontext()
@@ -193,12 +211,14 @@ class Mapper:
                 T_anchor, T_cur[None]).astype(np.float32)
             vm[rows] = True
 
-        pts_w, ok = fused_temporal_step(
-            self._dev(px_a), self._dev(px_c), self._dev(T_a),
-            self._dev(T_rel), self._dev(vm), self._calib_l,
-            max_reproj_err=float(cfg.max_reproj_err))
-        pts_w = pts_w.cpu().numpy()
-        ok = ok.cpu().numpy()
+            state = pack_temporal_state(px_a, px_c, T_a, T_rel, vm)
+        k = self._stage.next()
+        out = self._temporal_step(
+            self._stage.upload(k, "temporal_in", state),
+            calib_l=self._calib_l, max_reproj_err=float(cfg.max_reproj_err))
+        packed = self._read(k, "temporal_out", out)
+        pts_w = packed[:, 0:3]
+        ok = packed[:, 3] > 0.5
         with lock:
             if not m.kf_valid[kfid] or int(m.kf_seq[kfid]) != seq_snap:
                 return

@@ -294,6 +294,8 @@ class AsyncSlamManager(SlamManager):
                 try:
                     item = self._kf_queue.get(timeout=0.05)
                 except queue.Empty:
+                    # idle: the next BA capacity's graphs, if one is due
+                    self.estimator.prewarm_next()
                     continue
                 # drain to the newest KF. Reference semantics: the Mapper
                 # maps EVERY keyframe but skips the optional stages under

@@ -331,6 +331,7 @@ class SlamManager:
         if self.cfg.slam_mode:
             self.estimator.local_ba(kfid)
             self.estimator.map_filtering(kfid)
+            self.estimator.prewarm_next()
         if self.loop_closer is not None:
             self.loop_closer.process_keyframe(kfid, img=fe.cur_pyr[0])
         # refresh the front-end pose estimate after BA moved the map; in

@@ -28,12 +28,11 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import threading
 from typing import Sequence
 
 import torch
 
-from .. import kernels
+from .. import graphs, kernels
 from .launch import check, device_of
 from .patch import extract_patches, sample_window
 
@@ -300,9 +299,8 @@ def launch(pyr_prev, pyr_cur, kps, priors, valid, back_levels: int = 0,
             else None, stream)
     if rc != 0:
         raise RuntimeError(f"klt_track launch failed: code {rc}")
-    klt_track.launches += 1
-    klt_track.shapes[(a.n, a.levels, back_levels > 0)] += 1
-    klt_track.origins[(threading.current_thread().name, stream)] += 1
+    graphs.count_launch(klt_track, (a.n, a.levels, back_levels > 0),
+                        stream)
     return xy, status, residual
 
 
@@ -327,9 +325,9 @@ def klt_track(
                   max_err=max_err, margin=margin)
 
 
-# launches of the kernel (by klt_track, fb_klt_track and the split), how
-# many at each (N, levels, fb), and how many from each (thread name, CUDA
-# stream handle)
+# launches of the kernel (by klt_track, fb_klt_track and the split; a
+# launch inside a CUDA graph counts on each replay), how many at each (N,
+# levels, fb), and how many from each (thread name, CUDA stream handle)
 klt_track.launches = 0
 klt_track.shapes = collections.Counter()
 klt_track.origins = collections.Counter()

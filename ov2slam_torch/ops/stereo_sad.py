@@ -30,9 +30,11 @@ def line_min_sad(img_left, img_right, kps, valid,
     """
     r = win // 2
     L = extract_patches(img_left, kps - r, win)
-    shift = torch.tensor([max_disp + r, r], dtype=img_left.dtype,
-                         device=kps.device)
-    strip = extract_patches(img_right, kps - shift, win,
+    # the strip's corner, column by column (Python-scalar offsets: a host
+    # tensor here would be an upload, which a CUDA graph capture refuses)
+    corner = torch.stack([kps[:, 0] - (max_disp + r), kps[:, 1] - r],
+                         dim=-1)
+    strip = extract_patches(img_right, corner, win,
                             patch_width=win + max_disp)
     n_px = win * win
     sads = torch.stack(

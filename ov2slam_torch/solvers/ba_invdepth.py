@@ -27,6 +27,8 @@ T_cw):
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -456,19 +458,27 @@ def ba_solve_invdepth_two_pass(
     iters_robust: int = 5,
     iters_l2: int = 3,
     between_iters=None,
+    runners=None,
 ):
     """Robust pass -> chi2 cull -> L2 refinement (`optimizer.cpp:600-627`).
 
-    A window on the dense branch on a GPU is solved by
-    :class:`GraphedTwoPass` (the same operations, replayed as CUDA graphs);
-    anything else eagerly."""
+    A window on the dense branch on a GPU (:func:`graphed`) is solved by
+    :class:`GraphedTwoPass` (the same operations, replayed as CUDA
+    graphs), whose runners live in ``runners`` (a dict its owner keeps;
+    default the class's cache); anything else eagerly."""
     args = (kf_poses_wc, kf_fixed, lm_rho, lm_anchor, lm_ray, obs_kf,
             obs_lm, obs_px, obs_cam, obs_valid)
-    if kf_poses_wc.is_cuda and kf_poses_wc.shape[0] <= DENSE_SCHUR_MAX_KFS:
+    if graphed(kf_poses_wc.device, kf_poses_wc.shape[0]):
         return GraphedTwoPass.solve(args, params, robust_th, iters_robust,
-                                    iters_l2, between_iters)
+                                    iters_l2, between_iters, runners)
     return _two_pass(args, params, robust_th, iters_robust, iters_l2,
                      between_iters)
+
+
+def graphed(device, n_kf: int) -> bool:
+    """Whether a window of ``n_kf`` keyframes on ``device`` is solved by
+    :class:`GraphedTwoPass`."""
+    return device.type == "cuda" and n_kf <= DENSE_SCHUR_MAX_KFS
 
 
 def _two_pass(args, params, robust_th, iters_robust, iters_l2,
@@ -484,6 +494,97 @@ def _two_pass(args, params, robust_th, iters_robust, iters_l2,
         obs_kf, obs_lm, obs_px, obs_cam, obs_valid & inlier, params,
         robust_th=0.0, iters=iters_l2, between_iters=between_iters)
     return poses, pos, rho, inlier & inlier2, cost
+
+
+def ba_packed_size(Kw: int, Lw: int, O: int) -> int:
+    """Length of :func:`pack_ba_invdepth`'s vector."""
+    return Kw * 8 + Lw * 4 + O * 6
+
+
+def pack_ba_invdepth(prob, rho, ray, obs_valid, out=None):
+    """Host-side packing matching :func:`ba_invdepth_packed`'s layout (all
+    f32; indices are exact below 2^24): poses Kw*7 | fixed Kw | rho Lw |
+    anchor Lw | ray Lw*2 | obs_kf O | obs_lm O | obs_px 2O | obs_cam O |
+    obs_valid O. ``out`` reuses a buffer."""
+    Kw, Lw, O = len(prob.kf_poses), len(rho), len(prob.obs_kf)
+    flat = (out if out is not None
+            else np.empty(ba_packed_size(Kw, Lw, O), np.float32))
+    o = 0
+    for a in (prob.kf_poses, prob.kf_fixed, rho, prob.lm_anchor, ray,
+              prob.obs_kf, prob.obs_lm, prob.obs_px, prob.obs_cam,
+              obs_valid):
+        a = np.asarray(a).reshape(-1)
+        flat[o:o + a.size] = a
+        o += a.size
+    return flat
+
+
+def unpack_ba_invdepth(flat, Kw: int, Lw: int, O: int):
+    """:func:`pack_ba_invdepth`'s vector on a device as the ten inputs of
+    :func:`ba_solve_invdepth_two_pass`: indices int32, ``obs_cam`` int8,
+    masks bool, each a new tensor (so that an eager solve's kernels read
+    them as they read separate uploads)."""
+    i32 = torch.int32
+    o = 0
+
+    def take(n):
+        nonlocal o
+        o += n
+        return flat[o - n:o]
+
+    poses = take(Kw * 7).reshape(Kw, 7).clone()
+    fixed = take(Kw) > 0.5
+    rho = take(Lw).clone()
+    anchor = take(Lw).to(i32)
+    ray = take(Lw * 2).reshape(Lw, 2).clone()
+    obs_kf = take(O).to(i32)
+    obs_lm = take(O).to(i32)
+    obs_px = take(2 * O).reshape(O, 2).clone()
+    obs_cam = take(O).to(torch.int8)
+    obs_valid = take(O) > 0.5
+    return (poses, fixed, rho, anchor, ray, obs_kf, obs_lm, obs_px, obs_cam,
+            obs_valid)
+
+
+def pack_ba_out(poses, pos, inlier, cost):
+    """The two-pass solve's outputs as one f32 vector: [poses Kw*7 | pos
+    Lw*3 | inlier O | cost]."""
+    f32 = torch.float32
+    return torch.cat([poses.reshape(-1).to(f32), pos.reshape(-1).to(f32),
+                      inlier.to(f32), cost.reshape(1).to(f32)])
+
+
+def ba_invdepth_packed(flat, params: BAParams, Kw: int, Lw: int, O: int,
+                       robust_th: float = 5.9915, iters_robust: int = 5,
+                       iters_l2: int = 3, between_iters=None, runners=None):
+    """Single-buffer transport around the two-pass solve: ``flat`` is
+    :func:`pack_ba_invdepth`'s vector on the solve's device (one upload),
+    unpacked there into :func:`ba_solve_invdepth_two_pass` (on a GPU, a
+    dense window replays :class:`GraphedTwoPass` from ``runners``), and
+    the result is one vector [poses Kw*7 | pos Lw*3 | inlier O | cost]
+    (one readback). ``between_iters`` is called after each LM
+    iteration."""
+    if flat.shape != (ba_packed_size(Kw, Lw, O),):
+        raise ValueError(f"ba_invdepth_packed: {tuple(flat.shape)} for Kw "
+                         f"{Kw}, Lw {Lw}, O {O}")
+    poses, pos, _, inlier, cost = ba_solve_invdepth_two_pass(
+        *unpack_ba_invdepth(flat, Kw, Lw, O), params, robust_th,
+        iters_robust, iters_l2, between_iters, runners)
+    return pack_ba_out(poses, pos, inlier, cost)
+
+
+def pad_landmarks(prob, rho, ray, rows: int):
+    """``prob``'s inverse-depth problem (with ``rho``, ``ray``) grown to
+    ``rows`` landmark rows, the new ones named by no observation and
+    filled as :class:`GraphedTwoPass` pads (inverse depth 1, anchor -1, ray
+    0): returns (prob, rho, ray)."""
+    n = rows - len(rho)
+    pad = GraphedTwoPass._PAD
+    grown = copy.copy(prob)
+    grown.lm_anchor = np.concatenate([prob.lm_anchor,
+                                      np.full(n, pad[3], np.int32)])
+    return (grown, np.concatenate([rho, np.full(n, pad[2], np.float32)]),
+            np.concatenate([ray, np.full((n, 2), pad[4], np.float32)]))
 
 
 def landmark_capacity(n_landmarks: int, n_obs: int) -> int:
@@ -513,9 +614,11 @@ class GraphedTwoPass:
     where the eager solve does. The kernels and their inputs are the eager
     solve's on the padded problem, so a replay gives its numbers bit for
     bit (the unpadded solve's to rounding: sums over the landmarks group
-    otherwise). The cache holds a runner per shape and ``params`` object
-    (kept alive: the graphs read its tensors). Counters: ``eager``,
-    ``captures``, ``replays`` (solves of each kind)."""
+    otherwise). A cache holds a runner per shape and ``params`` object
+    (kept alive: the graphs read its tensors): the class's own, or one its
+    owner keeps, so that the graphs go with the owner (the estimator).
+    Counters: ``eager``, ``captures``, ``replays`` (solves of each kind;
+    :meth:`warm` counts on none)."""
 
     cache = {}
     eager = captures = replays = 0
@@ -535,20 +638,30 @@ class GraphedTwoPass:
         self.outputs = None
 
     @classmethod
-    def solve(cls, args, params, robust_th, iters_robust, iters_l2,
-              between_iters=None):
+    def runner(cls, args, params, robust_th, iters_robust, iters_l2,
+               cache=None):
+        """The runner of ``args``' shape in ``cache`` (default the
+        class's), made on first use."""
+        cache = cls.cache if cache is None else cache
         n_lm = landmark_capacity(args[2].shape[0], args[5].shape[0])
         key = (tuple(a.dtype for a in args),
                tuple(tuple(a.shape) for i, a in enumerate(args)
                      if i not in cls._PAD), n_lm, args[0].device,
                id(params), float(robust_th), iters_robust, iters_l2)
-        run = cls.cache.get(key)
+        run = cache.get(key)
         if run is None:
-            run = cls.cache[key] = cls(args, params, robust_th,
-                                       iters_robust, iters_l2)
-        return run(args, between_iters)
+            run = cache[key] = cls(args, params, robust_th, iters_robust,
+                                   iters_l2)
+        return run
 
-    def __call__(self, args, between_iters=None):
+    @classmethod
+    def solve(cls, args, params, robust_th, iters_robust, iters_l2,
+              between_iters=None, cache=None):
+        return cls.runner(args, params, robust_th, iters_robust, iters_l2,
+                          cache)(args, between_iters)
+
+    def _load(self, args):
+        """Copy ``args`` into the padded inputs; returns the landmarks."""
         n = args[2].shape[0]
         for i, (dst, src) in enumerate(zip(self.inputs, args)):
             if i in self._PAD:
@@ -556,6 +669,10 @@ class GraphedTwoPass:
                 dst[n:].fill_(self._PAD[i])
             else:
                 dst.copy_(src)
+        return n
+
+    def __call__(self, args, between_iters=None):
+        n = self._load(args)
         self.solves += 1
         if self.solves == 1:
             GraphedTwoPass.eager += 1
@@ -570,6 +687,16 @@ class GraphedTwoPass:
         poses, pos, rho, inlier, cost = out
         return (poses.clone(), pos[:n].clone(), rho[:n].clone(),
                 inlier.clone(), cost.clone())
+
+    def warm(self, args):
+        """A shape's first two solves' work ahead of need, on ``args``: an
+        eager solve and the capture, so that the next solve replays."""
+        self._load(args)
+        _two_pass(self.inputs, self.params, self.robust_th, *self.iters,
+                  None)
+        if self.graphs is None:
+            self._capture()
+        self.solves = max(self.solves, 1)
 
     def _replay(self, between_iters):
         prep, it1, cull, it2, fin = self.graphs

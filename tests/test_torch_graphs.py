@@ -1,6 +1,8 @@
 """The port's CUDA graphs of fixed-shape steps: ``ov2slam_torch/graphs.py``,
-``solvers/ba_invdepth.GraphedTwoPass`` (local BA) and
-``models/frontend_step.detect_describe`` (keyframe detection).
+``solvers/ba_invdepth.GraphedTwoPass`` (local BA, unpacked and packed),
+``models/frontend_step.detect_describe`` (keyframe detection) and the
+mapper's steps (``models/mapper_step.map_steps``: stereo mapping, temporal
+triangulation).
 
 On the CPU: what the graphs rest on — the solve's residual-only cost is the
 Jacobian pass's residuals bit for bit, the segment counts by ``index_add_``
@@ -9,14 +11,18 @@ with the unpadded solve (poses 1e-4, points 1e-3, masks equal: eight LM
 iterations carry the sums' other rounding) and returns the unpadded
 shapes, the CPU never enters a graph, and detection with its threshold as a
 0-d tensor (the graph's input) equals detection with the number, bit for
-bit, for every detector.
+bit, for every detector; the collector stays off while any thread
+captures, and a graphed step is no reference cycle.
 
 On the card (skipped without one, decided inside the test): a replayed
-solve and a replayed detection are bit-equal to the eager call of the same
-shape, two problem sizes share one set of graphs, and the counters say
-which calls ran eagerly, captured or replayed. The file imports no JAX, so
-that ``python -m pytest --noconftest tests/test_torch_graphs.py`` runs on
-the card.
+solve, detection, stereo step and temporal step are bit-equal to the eager
+call of the same shape, two problem sizes share one set of graphs, the
+counters say which calls ran eagerly, captured or replayed, a KLT launch
+inside the stereo graph counts at each replay, the packed solve replays
+its caller's runner bit-equal to the unpacked runner, and a step's
+function runs with the cyclic collector off while it is captured. The file
+imports no JAX, so that ``python -m pytest --noconftest
+tests/test_torch_graphs.py`` runs on the card.
 """
 
 import numpy as np
@@ -132,6 +138,46 @@ def test_cpu_solve_and_step_never_capture():
     assert not step.cache and step.eager == 0
 
 
+def test_collector_is_off_while_any_capture_runs():
+    """:func:`graphs.collector_off` nests across threads: the cyclic
+    collector stays off until the last holder leaves, then is as before;
+    and a graphed step is no reference cycle of its own, so dropping it
+    frees its graphs at once rather than at some later collection."""
+    import gc
+    import threading
+    import weakref
+
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        inside, leave = threading.Event(), threading.Event()
+
+        def hold():
+            with graphs.collector_off():
+                inside.set()
+                leave.wait(10)
+
+        t = threading.Thread(target=hold)
+        t.start()
+        inside.wait(10)
+        with graphs.collector_off():
+            assert not gc.isenabled()
+        assert not gc.isenabled()          # the other thread still holds
+        leave.set()
+        t.join(10)
+        assert gc.isenabled()
+        gc.disable()
+        with graphs.collector_off():
+            pass
+        assert not gc.isenabled()          # left as it was found
+        step = graphs.GraphedStep(lambda x: x)
+        ref = weakref.ref(step)
+        del step
+        assert ref() is None               # freed without a collection
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 @pytest.mark.parametrize("detector,th", [("fast", 20.0), ("single", 0.01),
                                          ("gftt", 0.01)])
 def test_detection_threshold_as_a_tensor_is_bit_equal(detector, th):
@@ -206,3 +252,152 @@ def test_cuda_graphed_detection_is_bit_equal_to_eager():
     got = step(img, px, valid, th2, **kw)
     want = frontend_step.fused_detect_describe(img, px, valid, th2, **kw)
     assert torch.equal(got[0], want[0])
+
+
+def _stereo_case(dev, n=96, seed=2):
+    """A 188x120 stereo keyframe on ``dev``: the left pyramid, the right
+    image, a packed state with every third row a 3D landmark, and the
+    step's static arguments."""
+    from ov2slam_torch.core.image import build_pyramid
+    from ov2slam_torch.geometry.essential import essential_from_pose
+    from ov2slam_torch.io.synthetic import generate_sequence
+    from ov2slam_torch.models import mapper_step
+
+    seq = generate_sequence(n_frames=1, stereo=True, width=188, height=120,
+                            n_points=800, seed=seed)
+    rng = np.random.default_rng(seed)
+    px = rng.uniform([12, 12], [176, 108], (n, 2)).astype(np.float32)
+    is3d = np.arange(n) % 3 == 0
+    lm_pos = np.where(is3d[:, None], rng.uniform([-1, -1, 4], [1, 1, 8],
+                                                 (n, 3)), 0.0)
+    state = mapper_step.pack_stereo_state(
+        px, lm_pos, rng.random(n) < 0.9, is3d, np.array([1, 0, 0, 0, 0, 0,
+                                                         0.0]))
+    left = torch.as_tensor(seq.images_left[0].astype(np.float32),
+                           device=dev)
+    T_lr = torch.as_tensor(np.asarray(seq.T_lr, np.float32), device=dev)
+    calib = _calib(dev)._replace(dist=torch.zeros(4, device=dev))
+    static = dict(T_lr=T_lr, E_lr=essential_from_pose(T_lr), calib_l=calib,
+                  calib_r=calib, levels=3)
+    return ((*build_pyramid(left, 3),
+             torch.as_tensor(seq.images_right[0], device=dev),
+             torch.as_tensor(state, device=dev)), static)
+
+
+def test_cuda_graphed_stereo_step_is_bit_equal_and_counts_klt_launches():
+    """Replays equal the eager step; the capture launches no KLT kernel of
+    its own, and each replay counts the one it holds, with this thread
+    and stream; a new left pyramid is copied into the graph's inputs."""
+    import threading
+
+    from ov2slam_torch.models import mapper_step
+    from ov2slam_torch.ops import klt
+
+    dev = _cuda()
+    tensors, static = _stereo_case(dev)
+    step = graphs.GraphedStep(mapper_step._stereo_graph_fn)
+    counts = [klt.klt_track.launches]
+    outs = []
+    for _ in range(4):
+        outs.append(step(*tensors, **static))
+        counts.append(klt.klt_track.launches)
+    torch.cuda.synchronize()
+    assert (step.eager, step.captures, step.replays) == (1, 1, 3)
+    assert np.diff(counts).tolist() == [1, 1, 1, 1]
+    (entry,) = step.cache.values()
+    assert len(entry["launches"]) == 1
+    key = (threading.current_thread().name,
+           torch.cuda.current_stream(dev).cuda_stream)
+    assert klt.klt_track.origins[key] >= 4
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    other, _ = _stereo_case(dev, seed=4)
+    moved = (*other[:3], *tensors[3:])       # another keyframe's left image
+    assert torch.equal(step(*moved, **static),
+                       mapper_step._stereo_graph_fn(*moved, **static))
+
+
+def test_cuda_graphed_temporal_step_is_bit_equal():
+    from ov2slam_torch.models import mapper_step
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    n = 128
+    T_a = np.tile([1.0, 0, 0, 0, 0, 0, 0], (n, 1))
+    T_rel = np.tile([1.0, 0, 0, 0, 0.5, 0, 0], (n, 1))
+    px_a = rng.uniform(20, 160, (n, 2))
+    state = torch.as_tensor(mapper_step.pack_temporal_state(
+        px_a, px_a - [10.0, 0.0], T_a, T_rel, rng.random(n) < 0.8),
+        device=dev)
+    step = graphs.GraphedStep(mapper_step.fused_temporal_step)
+    calib = _calib(dev)            # a static argument: keyed by the object
+    outs = [step(state, calib_l=calib) for _ in range(3)]
+    assert (step.eager, step.captures, step.replays) == (1, 1, 2)
+    assert outs[0][:, 3].sum() > 50
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+def test_cuda_packed_ba_runner_is_bit_equal_to_the_unpacked_runner():
+    """The packed solve unpacks on the card into a :class:`GraphedTwoPass`
+    runner of its caller's own cache: eager, captured, replayed, each
+    bit-equal to a runner given the unpacked arrays."""
+    import types
+
+    dev = _cuda()
+    args, prm = _problem(dev, n_kf=12, n_lm=300)
+    Kw, Lw, O = 12, args[2].shape[0], args[5].shape[0]
+    host = [a.cpu().numpy() for a in args]
+    prob = types.SimpleNamespace(
+        kf_poses=host[0], kf_fixed=host[1], lm_anchor=host[3],
+        obs_kf=host[5], obs_lm=host[6], obs_px=host[7], obs_cam=host[8])
+    flat = torch.as_tensor(bi.pack_ba_invdepth(
+        prob, host[2], host[4], host[9]), device=dev)
+    run = bi.GraphedTwoPass(args, prm, 5.9915, 5, 3)
+    want = [run(args) for _ in range(3)]
+    calls, runners = [], {}
+    n = (len(bi.GraphedTwoPass.cache), bi.GraphedTwoPass.replays)
+    got = [bi.ba_invdepth_packed(flat, prm, Kw, Lw, O,
+                                 between_iters=lambda: calls.append(1),
+                                 runners=runners)
+           for _ in range(3)]
+    torch.cuda.synchronize()
+    assert len(calls) == 3 * 8
+    (packed,) = runners.values()
+    assert packed.graphs is not None and packed.solves == 3
+    assert len(bi.GraphedTwoPass.cache) == n[0]
+    assert bi.GraphedTwoPass.replays == n[1] + 2
+    for w, g in zip(want, got):
+        poses, pos, _, inlier, cost = w
+        assert torch.equal(g[:Kw * 7], poses.reshape(-1))
+        assert torch.equal(g[Kw * 7:Kw * 7 + Lw * 3], pos.reshape(-1))
+        assert torch.equal(g[Kw * 7 + Lw * 3:-1] > 0.5, inlier)
+        assert torch.equal(g[-1], cost)
+
+
+def test_cuda_capture_runs_with_the_collector_off():
+    """A step's function runs with the cyclic collector on when eager and
+    off while captured (a collection there could destroy a graph held in a
+    garbage cycle, which invalidates the capture), and the collector is
+    back on after."""
+    import gc
+
+    dev = _cuda()
+    x = torch.arange(8.0, device=dev)
+    seen = []
+
+    def fn(t):
+        seen.append(gc.isenabled())
+        return t * 2
+
+    was = gc.isenabled()
+    gc.enable()
+    try:
+        step = graphs.GraphedStep(fn)
+        outs = [step(x) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert seen == [True, False] and gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+    assert (step.eager, step.captures, step.replays) == (1, 1, 2)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])

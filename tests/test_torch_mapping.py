@@ -117,17 +117,18 @@ def test_fused_stereo_map_step_landmarks(stereo):
         jnp.asarray(state), jnp.asarray(T_lr),
         j_efp(jnp.asarray(T_lr)), jc, jc, levels=3))
     t = tms.fused_stereo_map_step(
-        tuple(t_pyr(T(left), 3)), T(right), T(kps), T(lm_pos), T(ok),
-        T(is3d), T(T_wc), T(T_lr), t_efp(T(T_lr)), tc, tc, levels=3)
+        tuple(t_pyr(T(left), 3)), T(right),
+        T(tms.pack_stereo_state(kps, lm_pos, ok, is3d, T_wc)), T(T_lr),
+        t_efp(T(T_lr)), tc, tc, levels=3).numpy()
+    assert t.shape == j.shape == (N, 8) and t.dtype == np.float32
     j_tri = j[:, 6] > 0.5
-    t_tri = t["tri_ok"].numpy()
+    t_tri = t[:, 6] > 0.5
     assert j_tri.sum() > 20
     assert (j_tri == t_tri).mean() >= 0.97
     both = j_tri & t_tri
-    np.testing.assert_allclose(t["pts_w"].numpy()[both], j[both, 2:5],
+    np.testing.assert_allclose(t[both, 2:5], j[both, 2:5],
                                rtol=5e-3, atol=1e-3)
-    np.testing.assert_allclose(t["rpx"].numpy()[both], j[both, 0:2],
-                               atol=0.01)
+    np.testing.assert_allclose(t[both, 0:2], j[both, 0:2], atol=0.01)
     # temporal triangulation on the same rows (anchor = this left view)
     T_rel = np.broadcast_to(T_lr, (N, 7)).copy()
     T_a = np.broadcast_to(T_wc, (N, 7)).copy()
@@ -135,8 +136,8 @@ def test_fused_stereo_map_step_landmarks(stereo):
     jt = np.asarray(jms.fused_temporal_step(
         jnp.asarray(jms.pack_temporal_state(kps, px_c, T_a, T_rel, both)),
         jc))
-    tp, tok = tms.fused_temporal_step(T(kps), T(px_c), T(T_a), T(T_rel),
-                                      T(both), tc)
-    np.testing.assert_array_equal(tok.numpy(), jt[:, 3] > 0.5)
-    np.testing.assert_allclose(tp.numpy()[both], jt[both, 0:3], rtol=5e-3,
+    tt = tms.fused_temporal_step(
+        T(tms.pack_temporal_state(kps, px_c, T_a, T_rel, both)), tc).numpy()
+    np.testing.assert_array_equal(tt[:, 3] > 0.5, jt[:, 3] > 0.5)
+    np.testing.assert_allclose(tt[both, 0:3], jt[both, 0:3], rtol=5e-3,
                                atol=1e-3)

@@ -13,7 +13,14 @@ launches, host calls and device ms per frame grouped two ways: by
 ``Profiler`` scope and by the port function that the models layer
 called (a function of ``ov2slam_torch``'s ops, core, geometry, solvers,
 loopclosure or mapping packages, the outermost one when they nest;
-"(models: <scope>)" for the models layer's own tensor ops). While traced,
+"(models: <scope>)" for the models layer's own tensor ops). Besides the
+``Profiler`` scopes, the methods in ``TRACE_SCOPES`` (local-map matching,
+the loop closer's keyframe step, and the rest of ``process_frame``) are
+traced as scopes of their own, "(trace) Class.method", so that no launch
+falls outside every scope; the port's ``Profiler`` has no scope there, as the
+JAX package has none. A hand kernel launched inside a CUDA graph runs on
+the graph's replays: its device events there are counted from the trace
+(``in_graph_replays``), not by :class:`HandKernelTimer`. While traced,
 each scope and each such function, as the models modules hold it, runs
 inside a ``record_function`` range; each device event is charged to the
 ranges around the runtime call that launched it. The trace holds the
@@ -196,16 +203,33 @@ def hand_kernel_of(name: str):
 
 
 def hand_events(events):
-    """Device events of each hand kernel library that a trace holds."""
+    """Device events of each hand kernel library that a trace holds, and
+    (library: (events, µs)) of those a CUDA graph's replay ran."""
     import torch
 
-    out = {}
+    graphed = graph_kernel_ids(events)
+    out, replayed = {}, {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             lib = hand_kernel_of(e.name)
             if lib is not None:
                 out[lib] = out.get(lib, 0) + 1
-    return out
+                if e.id in graphed:
+                    n, t = replayed.get(lib, (0, 0.0))
+                    replayed[lib] = (n + 1, t + e.time_range.elapsed_us())
+    return out, replayed
+
+
+def graph_kernel_ids(events):
+    """Correlation ids of the device events that a CUDA graph's replay
+    ran (their runtime call is a graph launch). The hand kernels among
+    them are left in the trace's totals: :class:`HandKernelTimer` does not
+    time a launch captured into a graph."""
+    import torch
+
+    return {e.id for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.name in GRAPH_LAUNCHES}
 
 
 class HandKernelTimer:
@@ -242,7 +266,9 @@ class HandKernelTimer:
         import torch
 
         def call(*args):
-            if not self.active:
+            # a launch into a graph being captured runs on its replays,
+            # where the trace holds it (kernel_groups)
+            if not self.active or torch.cuda.is_current_stream_capturing():
                 return orig(*args)
             stack = _open_stack()
             scope = next((v for k, v in reversed(stack) if k == "scope"),
@@ -286,10 +312,21 @@ class HandKernelTimer:
                 sum(t for _, t in by_lib.values()))
 
     def per_frame(self, frames: int, traced):
+        """Each library's timed launches and device ms a frame, the device
+        events the trace holds, and the launches graph replays ran (from
+        the trace: ``traced`` is :func:`hand_events`' pair)."""
         by_lib, _ = self.totals()
-        return {name: dict(launches=n / frames, device_ms=1e-3 * t / frames,
-                           traced_device_events=traced.get(name, 0) / frames)
-                for name, (n, t) in sorted(by_lib.items())}
+        seen, replayed = traced
+        out = {}
+        for name in sorted(set(by_lib) | set(replayed)):
+            n, t = by_lib.get(name, (0, 0.0))
+            g, gt = replayed.get(name, (0, 0.0))
+            out[name] = dict(launches=n / frames,
+                             device_ms=1e-3 * t / frames,
+                             traced_device_events=seen.get(name, 0) / frames,
+                             in_graph_replays=g / frames,
+                             in_graph_device_ms=1e-3 * gt / frames)
+        return out
 
 
 # the packages whose functions the models layer calls: a kernel launched
@@ -299,10 +336,25 @@ MODELS = ("frontend_step", "frontend", "mapper_step", "mapper", "estimator",
           "relocalizer", "slam", "pipeline")
 
 
+# methods that launch outside every ``Profiler`` scope (the JAX package
+# has none around them either), each traced as a scope of its own, named
+# "(trace) Class.method": the innermost scope open at a launch takes it,
+# so the ``Profiler`` scopes inside them keep theirs. The loop closer's
+# keyframe step and local-map matching held all of slice B's unscoped
+# launches (PERF.md, PR 12); what a frame launches outside every other
+# scope falls to "(trace) SlamManager.process_frame"
+TRACE_SCOPES = (
+    ("models.slam", "SlamManager", "process_frame"),
+    ("models.mapper", "Mapper", "match_to_local_map"),
+    ("loopclosure.closer", "LoopCloser", "process_keyframe"),
+)
+
+
 class scoped_ranges:
     """While entered: every ``Profiler`` scope is also a
-    ``torch.profiler.record_function`` range, and every function of a
-    ``LAYERS`` package that a ``MODELS`` module holds runs inside a range
+    ``torch.profiler.record_function`` range, each ``TRACE_SCOPES`` method
+    runs inside a scope of its own, and every function of a ``LAYERS``
+    package that a ``MODELS`` module holds runs inside a range
     ``fn <package/module.py>::<name>``. Yields the set of scope names
     seen."""
 
@@ -341,6 +393,14 @@ class scoped_ranges:
 
         Profiler.start, Profiler.stop = start, stop
         self._patched = []
+        for mod_name, cls_name, meth in TRACE_SCOPES:
+            cls = getattr(importlib.import_module(
+                f"ov2slam_torch.{mod_name}"), cls_name)
+            orig = cls.__dict__[meth]
+            label = f"(trace) {cls_name}.{meth}"
+            self.scopes.add(label)
+            setattr(cls, meth, _scoped(orig, label))
+            self._patched.append((cls, meth, orig))
         for m in MODELS:
             mod = importlib.import_module(f"ov2slam_torch.models.{m}")
             for name, fn in list(vars(mod).items()):
@@ -360,6 +420,25 @@ class scoped_ranges:
             setattr(mod, name, fn)
 
 
+def _scoped(fn, label):
+    """``fn`` inside a ``record_function`` range ``label`` that counts as
+    a scope (:func:`_group_keys`, :class:`HandKernelTimer`)."""
+    import functools
+
+    from torch.profiler import record_function
+
+    @functools.wraps(fn)
+    def scoped(*a, **k):
+        stack = _open_stack()
+        stack.append(("scope", label))
+        try:
+            with record_function(label):
+                return fn(*a, **k)
+        finally:
+            del stack[len(stack) - 1 - stack[::-1].index(("scope", label))]
+    return scoped
+
+
 def _ranged(fn, label):
     """``fn`` inside a ``record_function`` range ``label``."""
     from torch.profiler import record_function
@@ -376,9 +455,10 @@ def _ranged(fn, label):
 
 
 # the CUDA runtime calls that put work on a stream
+GRAPH_LAUNCHES = ("cudaGraphLaunch", "cuGraphLaunch")
 LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
             "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
-            "cudaGraphLaunch", "cuGraphLaunch")
+            *GRAPH_LAUNCHES)
 
 
 def _group_keys(call, scopes):
@@ -406,7 +486,8 @@ def kernel_groups(events, scopes):
     to the runtime call that launched it (same correlation id), and that
     call's enclosing CPU events name the groups; device events whose call
     the trace lacks are "(unattributed)". Hand kernels' device events are
-    left out (:class:`HandKernelTimer` counts them)."""
+    left out (:class:`HandKernelTimer` counts them), but for those a graph
+    replay ran."""
     import torch
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
@@ -416,7 +497,9 @@ def kernel_groups(events, scopes):
     for d in events:
         if d.device_type != cuda or getattr(d, "is_user_annotation", False):
             continue
-        if hand_kernel_of(d.name) is not None:
+        if hand_kernel_of(d.name) is not None and (
+                calls.get(d.id) is None
+                or calls[d.id].name not in GRAPH_LAUNCHES):
             continue          # counted by HandKernelTimer
         scope, fn = _group_keys(calls.get(d.id), scopes)
         for how, key in (("scope", scope), ("function", fn)):
@@ -469,18 +552,24 @@ def per_frame(group, frames: int):
 def kernel_table(events, top: int, hand: bool = True):
     """(count, device µs, the ``top`` kernels by device time as (name,
     launches, µs)) of a profiler's events; without ``hand``, the hand
-    kernels' events are left out (:class:`HandKernelTimer` counts them)."""
+    kernels' events are left out (:class:`HandKernelTimer` counts them)
+    but for those a graph replay ran."""
     import torch
 
     # kernels appear either as CUDA-typed events or attached to the CPU
     # ops that launched them, depending on the profiler build
-    kernels = [(e.name, e.time_range.elapsed_us()) for e in events
+    graphed = graph_kernel_ids(events)
+    kernels = [(e.name, e.time_range.elapsed_us(), e.id in graphed)
+               for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        kernels = [(k.name, k.duration) for e in events for k in e.kernels]
+        kernels = [(k.name, k.duration, False) for e in events
+                   for k in e.kernels]
     if not hand:
-        kernels = [k for k in kernels if hand_kernel_of(k[0]) is None]
+        kernels = [k for k in kernels
+                   if k[2] or hand_kernel_of(k[0]) is None]
+    kernels = [k[:2] for k in kernels]
     by_name = {}
     for name, t_us in kernels:
         n, t = by_name.get(name, (0, 0.0))
@@ -880,7 +969,7 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
         lib = hand_kernel_of(nm)
         if lib is not None and w0 <= a < w1:
             traced[lib] = traced.get(lib, 0) + 1
-    hand_rows = hand.per_frame(frames, traced)
+    hand_rows = hand.per_frame(frames, (traced, {}))
     # the hand kernels' device time the trace lacks, counted busy
     untraced_us = sum(1e3 * r["device_ms"] * frames * max(
         0.0, 1.0 - r["traced_device_events"] / r["launches"])
