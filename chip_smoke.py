@@ -51,7 +51,24 @@ Phases (any failure exits non-zero):
      replays equal the eager call bit for bit; host and device ms of each
      against the eager step;
      every SLAM slice and the bench must launch both and never run a plain
-     pose function on the card (``gate_pose_launches``);
+     pose function on the card (``gate_pose_launches``); then local BA's
+     kernels (``csrc/ba_normal_eq.cu``, ``csrc/ba_schur_step.cu``) against
+     their plain versions on the card (``phase_ba``): fixtures of 2, 32 and
+     64 keyframes with padded landmark rows, invalid rows and a row behind
+     its camera, and slice B's 10th local BA problem, Huber and L2. Gates:
+     each normal-equation sum within 1e-4 of its largest entry of an f64
+     plain solve's, or no farther from it than 2x the plain f32 version, the
+     cost within 1e-5; the Schur step and one LM iteration: poses within
+     1e-4, inverse depths 1e-3 relative; the accept test's decision equal;
+     each kernel's second launch bit-equal to its first; the two-pass
+     solve within 1e-3 with inlier masks equal and two runs bit-equal.
+     Times each kernel (and the Schur product and the LU between the Schur
+     step's launches) against its bound and plain version, and splits one
+     eager solve's kernels and device ms by stage, through the plain
+     versions and through the kernels; every SLAM slice with
+     inverse-depth local BA and the bench must launch both kernels, and no
+     run may call their plain versions on the card
+     (``gate_ba_launches``);
   6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
      BA, results written — gates on mono initialization, post-init frames,
      scale-aligned ATE, resets and the result files;
@@ -133,7 +150,8 @@ one JSON line of
 the plain-torch work with a bound (TSDF integration, the ESDF sweep, an LM
 iteration of the distributed BA), one JSON line of the graph steps' rows,
 one JSON line of kernel records (the KLT
-kernel, the RANSAC and PnP kernels, and the scorer), the card's name and
+kernel, the RANSAC and PnP kernels, local BA's two kernels, and the
+scorer), the card's name and
 power limit, and the final
 ``{"ok": true, "device": ...}`` line.
 
@@ -2612,14 +2630,32 @@ def graph_steps():
             ("temporal_graph", mapper_step.temporal_step_counts))
 
 
+def ba_kernel_fns():
+    """Local BA's hand-kernel wrappers by kernel (``csrc/ba_normal_eq.cu``:
+    the normal equations and the cost mode; ``csrc/ba_schur_step.cu``) and
+    their plain versions."""
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    return bi.KERNEL_WRAPPERS, bi.PLAIN_VERSIONS
+
+
 def reset_graph_counts() -> None:
-    """Zero the CUDA-graph steps' call counters and local BA's pre-warm
-    counts."""
+    """Zero the CUDA-graph steps' call counters, local BA's pre-warm
+    counts, and its hand kernels' launch counters and plain versions'
+    calls on CUDA tensors."""
     from ov2slam_torch.models.estimator import Estimator
 
     for _, g in graph_steps():
         g.eager = g.captures = g.replays = 0
     Estimator.prewarms = Estimator.prewarm_failures = 0
+    wrappers, plain = ba_kernel_fns()
+    for fns in wrappers.values():
+        for fn in fns:
+            fn.launches = 0
+            fn.shapes.clear()
+            fn.origins.clear()
+    for fn in plain:
+        fn.cuda_runs = 0
 
 
 def graph_counts():
@@ -2635,6 +2671,10 @@ def graph_counts():
                     f"{key}_replays": g.replays})
     out.update(ba_prewarms=Estimator.prewarms,
                ba_prewarm_failures=Estimator.prewarm_failures)
+    wrappers, plain = ba_kernel_fns()
+    for name, fns in wrappers.items():
+        out[f"{name}_launches"] = sum(fn.launches for fn in fns)
+    out["ba_plain_runs_on_cuda"] = sum(fn.cuda_runs for fn in plain)
     return out
 
 
@@ -2662,6 +2702,20 @@ def gate_graphs(name: str, counts, inverse_depth: bool,
     if counts["ba_prewarm_failures"] != 0:
         fail(f"slice {name}: {counts['ba_prewarm_failures']} local BA "
              f"pre-warms failed")
+    gate_ba_launches(name, counts, inverse_depth)
+
+
+def gate_ba_launches(name: str, counts, inverse_depth: bool) -> None:
+    """A run with inverse-depth local BA solves its windows through both
+    hand kernels; no run calls their plain versions on the card."""
+    if inverse_depth:
+        for key in ("ba_normal_eq", "ba_schur_step"):
+            if counts[f"{key}_launches"] < 1:
+                fail(f"slice {name}: the {key} kernel never launched "
+                     f"({counts})")
+    if counts["ba_plain_runs_on_cuda"] != 0:
+        fail(f"slice {name}: local BA's plain versions ran "
+             f"{counts['ba_plain_runs_on_cuda']} times on cuda")
 
 
 def gate_pose_launches(name: str, counts) -> None:
@@ -2713,6 +2767,24 @@ class Swap:
         fns = dict(essential_ransac=essential.essential_ransac_plain,
                    pnp_refine=pnp_refine.pnp_refine_plain)
         return cls(pose_sites(), lambda m, name, orig: fns[name])
+
+    @classmethod
+    def plain_ba(cls, all_rows: bool = False):
+        """Local BA's kernel wrappers replaced by their plain versions
+        (``solvers/ba_invdepth.py``: ``_lm_step`` looks them up there);
+        with ``all_rows``, the solve's bins also keep the rows that are
+        not valid, as they did before the kernels (the step's arithmetic
+        of then)."""
+        from ov2slam_torch.solvers import ba_invdepth as bi
+
+        def make(m, name, orig):
+            if name == "_bins":
+                return lambda *a, drop=None: orig(*a)
+            return getattr(bi, name + "_plain")
+
+        return cls([(bi, n) for n in ("normal_equations", "schur_step",
+                                      "lm_accept")
+                    + (("_bins",) if all_rows else ())], make)
 
     def __enter__(self):
         for module, name in self.sites:
@@ -2873,6 +2945,19 @@ def host_device_ms(fn, runs: int):
     return float(np.median(host)), float(np.median(dev))
 
 
+def ba_hand_kernels(fn):
+    """Local BA's hand kernels one call of ``fn`` starts, by library, from
+    the wrappers' counters (launches times the kernels a launch starts);
+    the trace may hold only some of their device events (PERF.md)."""
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    wrappers, _ = ba_kernel_fns()
+    n0 = {k: sum(f.launches for f in fns) for k, fns in wrappers.items()}
+    fn()
+    return {k: (sum(f.launches for f in fns) - n0[k])
+            * bi.KERNELS_PER_LAUNCH[k] for k, fns in wrappers.items()}
+
+
 def phase_graphs(dev, captured):
     """Slice B's ``GRAPH_CALL``-th local BA solve (unpacked and packed),
     keyframe detection, stereo mapping and temporal triangulation,
@@ -2954,6 +3039,8 @@ def phase_graphs(dev, captured):
         e_host, e_ms = host_device_ms(eager, 5)
         r_host, r_ms = host_device_ms(call, 20)
         kernels, _, kernel_ms = kernel_launches_per_call(eager)
+        if label.endswith("local BA"):
+            shape = dict(shape, hand_kernels_per_call=ba_hand_kernels(eager))
         if label == "stereo mapping":
             kernels, klt_per_call, _ = klt_kernels_per_call(eager)
             shape = dict(shape, klt_launches_per_call=klt_per_call)
@@ -3218,6 +3305,439 @@ def phase_pose(dev, captured):
 
 
 # ---------------------------------------------------------------------- #
+# phase ba: local BA's normal equations and Schur step as hand kernels
+# ---------------------------------------------------------------------- #
+
+BA_SUM_REL = 1e-4       # each sum: within this of its largest entry, or
+BA_SUM_F64_RATIO = 2.0  # no farther from f64 than this x the plain f32's
+BA_COST_REL = 1e-5      # the robust cost, relative
+BA_POSE_TOL = 1e-4      # one LM iteration: poses per component
+BA_RHO_REL = 1e-3       # ... inverse depths, relative
+BA_SOLVE_TOL = 1e-3     # the two-pass solve: poses, and points (with as
+#                         much relative)
+BA_CASE_KFS = (2, 32, 64)   # the card fixtures' windows (slice B's is 32)
+BA_ROBUST_TH = 5.9915
+
+
+def ba_extras(prob, padded: int = 7, invalid: int = 5, behind: bool = True,
+              block: int = 128):
+    """``prob`` (``bench.synth_ba_problem``'s arrays) with the rows the
+    dense branch must take: ``padded`` landmark rows as
+    ``GraphedTwoPass`` pads them (anchor -1, inverse depth 1, ray 0, named
+    by no observation), ``invalid`` observation rows (indices -1, not
+    valid), and with ``behind`` a landmark anchored at the first keyframe
+    whose rows from the last keyframe lie behind that camera (depth_ok
+    false); then one more invalid row while the rows are a multiple of
+    ``block``."""
+    import numpy as np
+
+    from ov2slam_torch.bench import BA_INTR
+    from ov2slam_torch.utils import lie_np
+
+    p = {k: np.array(v) for k, v in prob.items()}
+    f32 = np.float32
+
+    def add_rows(kf, lm, px, cam, valid):
+        for k, v in (("obs_kf", kf), ("obs_lm", lm), ("obs_px", px),
+                     ("obs_cam", cam), ("obs_valid", valid)):
+            p[k] = np.concatenate([p[k], np.asarray(v, p[k].dtype)])
+
+    if behind:
+        last = len(p["poses"]) - 1
+        p0, pk = (p["poses"][i].astype(np.float64) for i in (0, last))
+        for rx in (-1000.0, 1000.0):
+            X = lie_np.pose_apply(p0, np.array([2 * rx, 0.0, 2.0]))
+            z = lie_np.pose_apply(lie_np.pose_inverse(pk), X)[2]
+            if z < -1e-3:
+                break
+        else:
+            fail("ba_extras: no ray puts the landmark behind the last "
+                 "keyframe")
+        fx, fy, cx, cy = BA_INTR
+        lm = len(p["rho"])
+        p["rho"] = np.concatenate([p["rho"], [f32(0.5)]])
+        p["anchor"] = np.concatenate([p["anchor"], [0]]).astype(np.int32)
+        p["ray"] = np.concatenate([p["ray"], [[rx, 0.0]]]).astype(f32)
+        add_rows([0, last, last], [lm, lm, lm],
+                 [[fx * rx + cx, cy], [cx, cy], [cx + 5.0, cy]],
+                 [0, 0, 1], [True, True, True])
+    n = padded
+    p["rho"] = np.concatenate([p["rho"], np.ones(n, f32)])
+    p["anchor"] = np.concatenate([p["anchor"],
+                                  -np.ones(n, np.int32)]).astype(np.int32)
+    p["ray"] = np.concatenate([p["ray"], np.zeros((n, 2), f32)])
+    m = invalid + int((len(p["obs_kf"]) + invalid) % block == 0)
+    add_rows(-np.ones(m), -np.ones(m), np.zeros((m, 2)), np.zeros(m),
+             np.zeros(m, bool))
+    return p
+
+
+def ba_case(n_kf: int, dev, seed: int = 0, extras: bool = True):
+    """A local BA window of ``n_kf`` keyframes (``bench.synth_ba_problem``,
+    about 20 landmarks a keyframe, the first two fixed, only the first
+    for two keyframes; with ``extras`` :func:`ba_extras`' rows) as
+    ``ba_invdepth._two_pass``'s ten inputs on ``dev`` and its
+    calibration."""
+    from ov2slam_torch import bench
+
+    prob = bench.synth_ba_problem(n_kf, 20 * n_kf + 20, seed=seed)
+    if n_kf <= 2:
+        prob["fixed"][1:] = False
+    if extras:
+        prob = dict(ba_extras(prob), T_rl=prob["T_rl"])
+    return bench.ba_inputs(prob, dev)
+
+
+def ba_state(args, params):
+    """The solve's state of ``args`` (``ba_invdepth._prepare``) and its
+    observation columns as the kernels take them."""
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    s = bi._prepare(*args[:8], args[9], 1e-3, args[8])
+    return s, (s["anchor"], s["lm_ray"], s["obs_kf"], s["obs_lm"],
+               s["obs_px"], s["right"])
+
+
+def _rel_to_max(a, b) -> float:
+    """max |a - b| over the largest |b| (0 where b is 0 and a equals it)."""
+    d = float((a - b).abs().max()) if a.numel() else 0.0
+    m = float(b.abs().max()) if b.numel() else 0.0
+    return d / m if m > 0 else (0.0 if d == 0 else float("inf"))
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max(|b|, 1e-6), elementwise."""
+    return float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
+
+
+def ba_check(label, args, params, robust_th=BA_ROBUST_TH):
+    """Both kernels against their plain versions on the card on ``args``:
+    the normal equations at the start (each of Hpp, bp, Z, Hrr and brho
+    within ``BA_SUM_REL`` of its largest entry of the plain version's sums
+    in f64, or no farther from them than ``BA_SUM_F64_RATIO`` x the plain
+    f32 version; the cost within ``BA_COST_REL``); the Schur step
+    from the plain version's normal equations (poses within
+    ``BA_POSE_TOL``, inverse depths ``BA_RHO_REL`` relative); the cost mode
+    and the accept test on the plain candidate (cost within
+    ``BA_COST_REL``, the same decision, outputs equal); one whole LM
+    iteration through the kernels against one through the plain versions
+    (``BA_POSE_TOL``, ``BA_RHO_REL``, λ equal); each kernel's second launch
+    bit-equal to its first. Returns the figures."""
+    import torch
+
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    s, st = ba_state(args, params)
+    ne = (s["T_cw"], s["rho"], *st, s["w_valid"], s["free"], s["bins"],
+          params, robust_th)
+    got = bi.normal_equations(*ne)
+    ref = bi.normal_equations_plain(*ne)
+    # the plain version in f64 on the same inputs: the sums' own scale of
+    # f32 round-off (gradient-like sums cancel near convergence)
+    f64 = torch.float64
+    prm64 = params._replace(**{k: getattr(params, k).to(f64) for k in (
+        "fx", "fy", "cx", "cy", "T_rl")})
+    ref64 = bi.normal_equations_plain(
+        s["T_cw"].to(f64), s["rho"].to(f64), st[0], st[1].to(f64), st[2],
+        st[3], st[4].to(f64), st[5], s["w_valid"].to(f64),
+        s["free"].to(f64), s["bins"], prm64, robust_th)
+    sums = {}
+    for name, g, r, r64 in zip(("Hpp", "bp", "Z", "Hrr", "brho"), got, ref,
+                               ref64):
+        k_err = float((g.to(f64) - r64).abs().max())
+        p_err = float((r.to(f64) - r64).abs().max())
+        scale = float(r64.abs().max())
+        sums[name] = dict(kernel_to_f64=k_err, plain_to_f64=p_err,
+                          largest=scale, kernel_to_plain_rel=_rel_to_max(
+                              g, r),
+                          ok=k_err <= max(BA_SUM_F64_RATIO * p_err,
+                                          BA_SUM_REL * scale))
+    sum_err = max(v["kernel_to_plain_rel"] for v in sums.values())
+    abs_err = max(float((g - r).abs().max()) for g, r in zip(got[:5],
+                                                             ref[:5]))
+    cost_err = _rel(got[5], ref[5])
+    sc = (s["T_cw"], s["rho"], s["lam"], *ref[:5], s["free"])
+    T_k, rho_k = bi.schur_step(*sc)
+    T_p, rho_p = bi.schur_step_plain(*sc)
+    step_pose = float((T_k - T_p).abs().max())
+    step_rho = _rel(rho_k, rho_p)
+    ac = (s["T_cw"], s["rho"], s["lam"], ref[5], T_p, rho_p, *st,
+          s["w_valid"], params, robust_th)
+    acc_k = bi.lm_accept(*ac)
+    acc_p = bi.lm_accept_plain(*ac)
+    cost1_err = _rel(acc_k[3], acc_p[3])
+    same = bool(acc_k[2] == acc_p[2]) and all(
+        torch.equal(x, y) for x, y in zip(acc_k[:2], acc_p[:2]))
+    it_k = bi._lm_step(s, params, robust_th)
+    with Swap.plain_ba():
+        it_p = bi._lm_step(s, params, robust_th)
+    iter_pose = float((it_k[0] - it_p[0]).abs().max())
+    iter_rho = _rel(it_k[1], it_p[1])
+    again = (bi.normal_equations(*ne), bi.schur_step(*sc),
+             bi.lm_accept(*ac))
+    torch.cuda.synchronize()
+    bits = all(_bits_equal(x, y) for x, y in zip(
+        (*again[0], *again[1], *again[2]), (*got, T_k, rho_k, *acc_k)))
+    res = dict(label=label, keyframes=int(args[0].shape[0]),
+               landmarks=int(args[2].shape[0]),
+               observations=int(args[5].shape[0]),
+               valid=int(args[9].sum()), robust_th=robust_th,
+               sums=sums, sums_rel_err=sum_err, sums_max_abs_err=abs_err,
+               cost_rel_err=cost_err, step_pose_err=step_pose,
+               step_rho_rel_err=step_rho, cost1_rel_err=cost1_err,
+               accept_same=same, accepted=bool(acc_p[2] < s["lam"]),
+               iter_pose_err=iter_pose, iter_rho_rel_err=iter_rho,
+               iter_lam_equal=bool(it_k[2] == it_p[2]),
+               bit_equal=bits)
+    bad = [f"sums {k}" for k, v in sums.items() if not v["ok"]]
+    bad += [k for k, lim in (("cost_rel_err", BA_COST_REL),
+                            ("step_pose_err", BA_POSE_TOL),
+                            ("step_rho_rel_err", BA_RHO_REL),
+                            ("cost1_rel_err", BA_COST_REL),
+                            ("iter_pose_err", BA_POSE_TOL),
+                            ("iter_rho_rel_err", BA_RHO_REL))
+           if not res[k] <= lim]
+    bad += [k for k in ("accept_same", "iter_lam_equal", "bit_equal")
+            if not res[k]]
+    if bad:
+        fail(f"ba {label}: kernels and plain versions disagree on {bad}: "
+             f"{res}")
+    return res
+
+
+def ba_solve_check(label, args, params, iters=(5, 3)):
+    """The two-pass solve (robust pass, chi2 cull, L2 pass) eagerly
+    through the kernels twice and once through the plain versions on the
+    card: the kernels' runs bit-equal, poses within ``BA_SOLVE_TOL``,
+    points within it absolute and relative, inlier masks equal."""
+    import torch
+
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    def run():
+        return bi._two_pass(args, params, BA_ROBUST_TH, *iters, None)
+
+    k1, k2 = run(), run()
+    with Swap.plain_ba():
+        p = run()
+    torch.cuda.synchronize()
+    bits = all(_bits_equal(x, y) for x, y in zip(k1, k2))
+    pose = float((k1[0] - p[0]).abs().max())
+    pts = float(((k1[1] - p[1]).abs()
+                 - BA_SOLVE_TOL * p[1].abs()).max())
+    differ = int((k1[3] != p[3]).sum())
+    res = dict(label=label, bit_equal=bits, pose_err=pose,
+               point_err_beyond_rel=pts, inlier_rows_differ=differ,
+               inliers=int(p[3].sum()), cost=float(k1[4]),
+               cost_plain=float(p[4]))
+    if not (bits and pose <= BA_SOLVE_TOL and pts <= BA_SOLVE_TOL
+            and differ == 0):
+        fail(f"ba {label}: the two-pass solve disagrees: {res}")
+    return res
+
+
+def ba_timing(args, params, robust_th=BA_ROBUST_TH, runs: int = 20,
+              plain_runs: int = 3):
+    """Each kernel on ``args`` (ms: events around one call; device ms:
+    ``runs`` calls queued behind a sleep; the plain version's ms; the
+    bound): the normal equations and the cost mode with the accept test;
+    the Schur step whole, and its two launches, the Schur product
+    (``torch.addmm``) and the LU (``torch.linalg.solve_ex``) apart, by
+    their device time in a trace of ``runs`` calls (:func:`ba_stage_split`;
+    the kernel's ``ms`` is its two launches' device time, each the mean of
+    its events: a trace may lose an event)."""
+    from ov2slam_torch.roofline import (ba_normal_eq_bound,
+                                        ba_schur_step_bound)
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    s, st = ba_state(args, params)
+    Kw, Lw, O = (int(s["T_cw"].shape[0]), int(s["rho"].shape[0]),
+                 int(s["obs_kf"].shape[0]))
+    ne = (s["T_cw"], s["rho"], *st, s["w_valid"], s["free"], s["bins"],
+          params, robust_th)
+    Hpp, bp, Z, Hrr, brho, cost0 = bi.normal_equations(*ne)
+    sc = (s["T_cw"], s["rho"], s["lam"], Hpp, bp, Z, Hrr, brho, s["free"])
+    T_new, rho_new = bi.schur_step(*sc)
+    ac = (s["T_cw"], s["rho"], s["lam"], cost0, T_new, rho_new, *st,
+          s["w_valid"], params, robust_th)
+
+    def row(fn, plain, bound, launches):
+        return dict(ms=time_cuda(fn, runs), device_ms=time_cuda_queued(
+            fn, runs), plain_ms=(time_cuda(plain, plain_runs)
+                                 if plain is not None else None),
+            kernel_launches_per_call=launches, **bound)
+
+    out = dict(
+        shape=dict(keyframes=Kw, landmarks=Lw, observations=O),
+        normal_eq=row(lambda: bi.normal_equations(*ne),
+                      lambda: bi.normal_equations_plain(*ne),
+                      ba_normal_eq_bound(Kw, Lw, O), 2),
+        cost_accept=row(lambda: bi.lm_accept(*ac),
+                        lambda: bi.lm_accept_plain(*ac),
+                        ba_normal_eq_bound(Kw, Lw, O, cost=True), 2),
+        schur_step=row(lambda: bi.schur_step(*sc),
+                       lambda: bi.schur_step_plain(*sc), {}, 2))
+    trace = ba_stage_split(lambda: bi.schur_step(*sc), runs)
+    stages = trace["stages"]
+
+    def traced(stage, launch=False, **extra):
+        # device ms a call, or with ``launch`` a launch: its events' mean
+        t = stages.get(stage, dict(kernels=0, device_ms=0.0))
+        ms = t["device_ms"]
+        if launch:
+            if not (t["kernels"] and ms > 0):
+                fail(f"ba: the trace of schur_step shows no launch in "
+                     f"{stage}: {trace}")
+            ms /= t["kernels"]
+        return dict(ms=ms, device_ms=ms, kernels=t["kernels"], **extra)
+
+    out.update(schur_prepare=traced("ba.schur_prepare", True),
+               schur_update=traced("ba.schur_update", True),
+               schur_product=traced("ba.schur_product",
+                                    ops=2 * (6 * Kw) ** 2 * Lw),
+               lu_solve=traced("ba.solve"))
+    launch_ms = out["schur_prepare"]["ms"] + out["schur_update"]["ms"]
+    out["schur_kernel"] = dict(
+        ms=launch_ms, device_ms=launch_ms,
+        plain_ms=out["schur_step"]["plain_ms"],
+        kernel_launches_per_call=2, **ba_schur_step_bound(Kw, Lw))
+    return out
+
+
+def ba_stage_split(fn, runs: int = 1):
+    """Kernels and device ms a call of ``fn`` (the means of ``runs``) by
+    solve stage: each device event of a torch.profiler trace is charged to
+    the innermost ``ba.*`` range (``ba_invdepth.STAGES``) around the
+    runtime call that launched it (same correlation id); a hand kernel's
+    event to the range by its name where the trace has no such call; the
+    rest to "(other)". Also the hand kernels' launches from their
+    wrappers' counters, which a trace may hold only some of (PERF.md), and
+    each hand kernel's events and device ms by its name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ov2slam_torch.solvers.ba_invdepth import STAGES
+
+    fn()
+    torch.cuda.synchronize()
+    wrappers, _ = ba_kernel_fns()
+    n0 = {k: sum(f.launches for f in fns) for k, fns in wrappers.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    hand = {k: (sum(f.launches for f in fns) - n0[k]) / runs
+            for k, fns in wrappers.items()}
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    calls = {e.id: e for e in events if e.device_type == cpu
+             and e.name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                                    "cudaMemset"))}
+    by_name = {"ba_rows_kernel": "ba.normal_eq|cost_accept",
+               "ba_sums_kernel": "ba.normal_eq|cost_accept",
+               "schur_step_kernel": "ba.schur_prepare|update"}
+    split, by_kernel = {}, {}
+    for d in events:
+        if d.device_type != cuda or getattr(d, "is_user_annotation", False):
+            continue
+        stage, e = "(other)", calls.get(d.id)
+        while e is not None:
+            if e.name in STAGES:
+                stage = e.name
+                break
+            e = e.cpu_parent
+        hand_name = next((k for k in by_name if k in d.name), None)
+        if stage == "(other)" and hand_name is not None:
+            stage = by_name[hand_name]
+        us = d.time_range.elapsed_us()
+        n, t = split.get(stage, (0, 0.0))
+        split[stage] = (n + 1, t + us)
+        if hand_name is not None:
+            n, t = by_kernel.get(hand_name, (0, 0.0))
+            by_kernel[hand_name] = (n + 1, t + us)
+    per = 1.0 / runs
+    return dict(stages={k: dict(kernels=n * per, device_ms=1e-3 * us * per)
+                        for k, (n, us) in sorted(split.items())},
+                kernels=sum(n for n, _ in split.values()) * per,
+                device_ms=1e-3 * per * sum(us for _, us in split.values()),
+                hand_launches=hand,
+                hand_kernels={k: dict(kernels=n * per,
+                                      device_ms=1e-3 * us * per)
+                              for k, (n, us) in sorted(by_kernel.items())})
+
+
+def phase_ba(dev, captured):
+    """Local BA's two hand kernels against their plain versions on the
+    card: the fixtures (:func:`ba_case` at ``BA_CASE_KFS`` keyframes, Huber
+    and L2; their rows not a multiple of the kernels' blocks) and slice B's
+    ``GRAPH_CALL``-th local BA problem (recorded by :class:`GraphCapture`,
+    padded as ``GraphedTwoPass`` pads it): :func:`ba_check` on each,
+    :func:`ba_solve_check` on slice B's and the 32-keyframe fixture's
+    two-pass solve; then each kernel's times on slice B's problem
+    (:func:`ba_timing`) and the stage split of its eager two-pass solve
+    through the kernels and through the plain versions on bins that keep
+    the rows that are not valid (the solve as it was before the kernels,
+    :func:`ba_stage_split`). Returns the figures."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    t0 = time.perf_counter()
+    if "solve_packed" not in captured.inputs:
+        fail("ba: slice B made no local BA call")
+    (est, prob, rho, ray, valid), _ = captured.inputs["solve_packed"]
+    kw = est._solve_kw()
+    iters = (kw["iters_robust"], kw["iters_l2"])
+    prm = est.params
+    args = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                 for a in (prob.kf_poses, prob.kf_fixed, rho,
+                           prob.lm_anchor, ray, prob.obs_kf, prob.obs_lm,
+                           prob.obs_px, prob.obs_cam, valid))
+    run = bi.GraphedTwoPass(args, prm, kw["robust_th"], *iters)
+    run._load(args)
+    padded = tuple(run.inputs)
+    checks, solves = [], []
+    for n_kf in BA_CASE_KFS:
+        case, cprm = ba_case(n_kf, dev)
+        for th in (BA_ROBUST_TH, 0.0):
+            checks.append(ba_check(f"fixture {n_kf} KFs", case, cprm, th))
+        if n_kf == 32:
+            solves.append(ba_solve_check("fixture 32 KFs", case, cprm))
+    for th in (kw["robust_th"], 0.0):
+        checks.append(ba_check("slice B", padded, prm, th))
+    solves.append(ba_solve_check("slice B", padded, prm, iters))
+    for r in checks + solves:
+        print("[ba] " + json.dumps(r), flush=True)
+    timing = ba_timing(padded, prm, kw["robust_th"])
+    print("[ba] slice B times " + json.dumps(timing), flush=True)
+
+    def solve():
+        return bi._two_pass(padded, prm, kw["robust_th"], *iters, None)
+
+    # the plain versions on bins that keep every row: the parent's solve
+    with Swap.plain_ba(all_rows=True):
+        split_plain = ba_stage_split(solve)
+    split = ba_stage_split(solve)
+    n_it = sum(iters)
+    for name, sp in (("plain", split_plain), ("kernels", split)):
+        print(f"[ba] stage split, one eager solve through the {name} "
+              f"versions ({n_it} LM iterations): " + json.dumps(sp),
+              flush=True)
+    print(f"[ba] phase passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    err_sums = max(r["sums_max_abs_err"] for r in checks
+                   if r["label"] == "slice B")
+    err_step = max(max(r["step_pose_err"], r["iter_pose_err"])
+                   for r in checks)
+    return dict(checks=checks, solves=solves, timing=timing,
+                split=dict(plain=split_plain, kernels=split,
+                           iterations=n_it),
+                err=dict(ba_normal_eq=err_sums, ba_schur_step=err_step))
+
+
+# ---------------------------------------------------------------------- #
 # phase entry: the fb-KLT flagship call
 # ---------------------------------------------------------------------- #
 
@@ -3236,8 +3756,11 @@ def kernel_launches_per_call(fn, calls: int = 1):
             fn()
         torch.cuda.synchronize()
     events = prof.events()
+    # a record_function range also shows on the device's timeline; it is
+    # not a kernel
     dev_us = [e.time_range.elapsed_us() for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
     if not dev_us:
         dev_us = [k.duration for e in events for k in e.kernels]
     api = sum(e.count for e in prof.key_averages()
@@ -3433,6 +3956,7 @@ def phase_bench(dev):
         fail("bench: the plain scorer ran on cuda")
     gate_klt_launches("bench", klt)
     gate_pose_launches("bench", pose)
+    gate_ba_launches("bench", graph, True)
     print("[bench] CUDA-graph steps' calls: " + json.dumps(graph),
           flush=True)
     for name in ("e2e_async", "e2e_async20", "e2e_async40"):
@@ -3481,7 +4005,7 @@ def phase_bench(dev):
           f" bytes; scorer launches {launches}", flush=True)
     return dict(line=line, launches=launches, rows=rows, err=err,
                 seconds=secs, protocol=recs,
-                klt_launches=klt["klt_launches"], pose=pose)
+                klt_launches=klt["klt_launches"], pose=pose, graph=graph)
 
 
 def main() -> int:
@@ -3530,6 +4054,7 @@ def main() -> int:
         dev, seq_b, slice_config("B", seq_b, profiles))
     pose_rows, pose_err = phase_pose(dev, captured)
     graph_rows = phase_graphs(dev, graph_calls)
+    ba = phase_ba(dev, graph_calls)
 
     c, _ = run_slice("C", dev)
     gate_slice_c(c)
@@ -3625,7 +4150,33 @@ def main() -> int:
                                for r in slices},
             bench_launches=bn["pose"][key],
             paths=[r for r in pose_rows if r["kind"] == kind]))
-    kernels_line = {"kernels": [klt_line, *pose_line, dict(
+    # local BA's kernels: slice B's problem's figures; launches those of
+    # every SLAM slice and of the bench
+    t = ba["timing"]
+    ba_line = []
+    for name, source, replaces, ba_top, ba_paths in (
+            ("ba_normal_eq", "ov2slam_torch/csrc/ba_normal_eq.cu",
+             "ov2slam_tpu/solvers/ba_invdepth.py:385", t["normal_eq"],
+             dict(cost_accept=t["cost_accept"])),
+            ("ba_schur_step", "ov2slam_torch/csrc/ba_schur_step.cu",
+             "ov2slam_tpu/solvers/ba_invdepth.py:421", t["schur_kernel"],
+             {k: t[k] for k in ("schur_prepare", "schur_update",
+                                "schur_product", "lu_solve",
+                                "schur_step")})):
+        key = f"{name}_launches"
+        ba_line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(r[key] for r in slices) + bn["graph"][key],
+            max_abs_err=ba["err"][name], library_ms=None,
+            **{k: ba_top[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "kernel_launches_per_call")},
+            shape=t["shape"],
+            launches_by_slice={r["slice"] + (" " + r["part"] if "part" in r
+                                             else ""): r[key]
+                               for r in slices},
+            bench_launches=bn["graph"][key], paths=ba_paths))
+    kernels_line = {"kernels": [klt_line, *pose_line, *ba_line, dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",

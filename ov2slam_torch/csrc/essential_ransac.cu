@@ -7,9 +7,7 @@
 // :70, sampson_dist_sq :53), which the JAX package fuses into its jitted
 // tracking step. No Pallas kernel stands behind it. The plain PyTorch
 // version is geometry/essential.py::essential_ransac_plain; this file
-// computes what it computes, and what the earlier three-kernel form of
-// this file (a hypotheses, a scoring and a selection kernel) computed, bit
-// for bit:
+// computes what it computes:
 //
 //   - 5-point (warp 0 unless said): the null space of the 5x9 system from
 //     a Householder QR of its transpose in LAPACK's convention (geqr2: beta
@@ -20,7 +18,9 @@
 //     (getf2: the first largest pivot, multipliers by the reciprocal,
 //     rank-1 updates; getrs on the 10 right-hand sides), the degree-10
 //     det B(z) (its three cofactor products on three lanes, summed in
-//     order on one), its real roots from the first 10 sign changes in grid
+//     order on one), these three in f64 from the f32 null space, then B(z)
+//     and det B rounded to f32; its real roots from the first 10 sign
+//     changes in grid
 //     order of cos^10(t) p(tan t) on the plain version's 512-point grid
 //     (passed in, torch.linspace's own values; every thread of the CTA
 //     evaluates two points, every warp ranks the changes of its part), 60
@@ -56,9 +56,12 @@
 // of all 60 steps. A bracket one grid cell wide stops after 17-25 steps
 // (4-5 rounds); 60 remains the cap, near t = 0 where floats are dense.
 //
-// Rounding. Every step keeps the three-kernel form's operations (explicit
-// _rn intrinsics in the 5-point path, no contraction; the 8-point path's
-// plain arithmetic word for word). Sums run in a fixed order (each
+// Rounding. Explicit _rn intrinsics in the 5-point path, no contraction.
+// The constraint rows, their solve and det B run in f64: in f32 that
+// stage loses the roots' digits on some samples (a 10x10 elimination of
+// products of the null space; on a real loop-closure sample a root moved
+// by 1e-3 relative, where the same stage in f64 from the same f32 null
+// space keeps 1e-5). Sums run in a fixed order (each
 // thread's rows in index order, then a xor butterfly of shuffles and the
 // group's warps in order; no atomics), so two launches agree bit for bit.
 // Against the plain version the small linear algebra rounds in another
@@ -123,10 +126,11 @@ struct Sample {
   float tau[8];
   float null_[4][9];    // null-space columns of Q (X, Y, Z, W / e)
   float ep[9][4];       // E's entries as deg-1 polynomials in (x, y, z, 1)
-  float c[9][10];       // C[i][k] = sum_m Ep[i][m] Ep[k][m], deg 2
-  float m[10][20];      // constraint rows; after the solve, P in 10..19
-  float bp[3][3][5];    // B(z): rows (4,5), (6,7), (8,9) of P
-  float d2[3][11];      // det B's cofactor products
+  double c[9][10];      // C[i][k] = sum_m Ep[i][m] Ep[k][m], deg 2
+  double m[10][20];     // constraint rows; after the solve, P in 10..19
+  double bp[3][3][5];   // B(z): rows (4,5), (6,7), (8,9) of P
+  double d2[3][11];     // det B's cofactor products
+  float bpf[3][3][5];   // B(z) and det B rounded to f32 for the roots
   float detb[11];
   float gv[kGrid];      // det B on the grid (flo at a bracket's lower end)
   int8_t sgn[kGrid];
@@ -142,6 +146,14 @@ struct Sample {
 };
 
 __device__ __forceinline__ float sq(float x) { return __fmul_rn(x, x); }
+
+// the fused multiply-add of each precision, rounded once
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
 
 // cos^10(t) p(tan t) for lowest-first coefficients c: the plain version's
 // s^k and co^(10-k) by repeated products, then the sum over k
@@ -229,50 +241,52 @@ __device__ void q_column(const Sample& sh, int k, int j, float* y) {
   }
 }
 
+// deg1 x deg1 -> deg2 of f32 coefficients, in f64
 __device__ __forceinline__ void p11(const float* a, const float* b,
-                                    float* out) {
+                                    double* out) {
 #pragma unroll
-  for (int t = 0; t < 10; ++t) out[t] = 0.f;
+  for (int t = 0; t < 10; ++t) out[t] = 0.0;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      out[t112(i, j)] = __fmaf_rn(a[i], b[j], out[t112(i, j)]);
+      out[t112(i, j)] = __fma_rn(static_cast<double>(a[i]),
+                                 static_cast<double>(b[j]), out[t112(i, j)]);
 }
 
-// out += s * p21(a, b) (deg2 x deg1 -> deg3)
-__device__ __forceinline__ void p21_acc(const float* a, const float* b,
-                                        float s, float* out) {
-  float t[20];
+// out += s * p21(a, b) (deg2 x deg1 -> deg3), in f64
+__device__ __forceinline__ void p21_acc(const double* a, const float* b,
+                                        double s, double* out) {
+  double t[20];
 #pragma unroll
-  for (int q = 0; q < 20; ++q) t[q] = 0.f;
+  for (int q = 0; q < 20; ++q) t[q] = 0.0;
 #pragma unroll
   for (int i = 0; i < 10; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      t[t213(i, j)] = __fmaf_rn(a[i], b[j], t[t213(i, j)]);
+      t[t213(i, j)] = __fma_rn(a[i], static_cast<double>(b[j]),
+                               t[t213(i, j)]);
 #pragma unroll
-  for (int q = 0; q < 20; ++q) out[q] = __fmaf_rn(s, t[q], out[q]);
+  for (int q = 0; q < 20; ++q) out[q] = __fma_rn(s, t[q], out[q]);
 }
 
 // polynomial product truncated to 11 coefficients: out += s * a * b, for
 // a of la <= MA and b of lb <= MB coefficients (the products outside them
 // predicated off, so the lanes of a warp share one path)
-template <int MA, int MB>
-__device__ __forceinline__ void conv_acc(const float* a, int la,
-                                         const float* b, int lb, float s,
-                                         float* out) {
-  float t[11];
+template <int MA, int MB, typename T>
+__device__ __forceinline__ void conv_acc(const T* a, int la, const T* b,
+                                         int lb, T s, T* out) {
+  T t[11];
 #pragma unroll
-  for (int q = 0; q < 11; ++q) t[q] = 0.f;
+  for (int q = 0; q < 11; ++q) t[q] = 0;
 #pragma unroll
   for (int i = 0; i < MA; ++i)
 #pragma unroll
     for (int j = 0; j < MB; ++j)
       if (i < la && j < lb && i + j < 11)
-        t[i + j] = __fmaf_rn(a[i], b[j], t[i + j]);
+        t[i + j] = fma_rn(a[i], b[j], t[i + j]);
 #pragma unroll
-  for (int q = 0; q < 11; ++q) out[q] = __fmaf_rn(s, t[q], out[q]);
+  for (int q = 0; q < 11; ++q) out[q] = fma_rn(s, t[q], out[q]);
 }
 
 __device__ float polyval(const float* c, int len, float z) {
@@ -380,7 +394,7 @@ __device__ bool root_candidate(const Sample& sh, float lo, float hi,
   const int lens[3] = {4, 4, 5};
   float b[2][3];
   for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 3; ++j) b[i][j] = polyval(sh.bp[i][j], lens[j], z);
+    for (int j = 0; j < 3; ++j) b[i][j] = polyval(sh.bpf[i][j], lens[j], z);
   const float den = __fsub_rn(__fmul_rn(b[0][0], b[1][1]),
                               __fmul_rn(b[0][1], b[1][0]));
   const float x = __fdiv_rn(
@@ -424,38 +438,38 @@ __device__ void five_point(Sample& sh, const float* theta, int warp,
     // C[i][k] = sum_m p11(Ep[i][m], Ep[k][m])
     if (lane < 9) {
       const int i = lane / 3, k = lane % 3;
-      float acc[10], t[10];
-      for (int q = 0; q < 10; ++q) acc[q] = 0.f;
+      double acc[10], t[10];
+      for (int q = 0; q < 10; ++q) acc[q] = 0.0;
       for (int m = 0; m < 3; ++m) {
         p11(sh.ep[3 * i + m], sh.ep[3 * k + m], t);
-        for (int q = 0; q < 10; ++q) acc[q] = __fadd_rn(acc[q], t[q]);
+        for (int q = 0; q < 10; ++q) acc[q] = __dadd_rn(acc[q], t[q]);
       }
       for (int q = 0; q < 10; ++q) sh.c[lane][q] = acc[q];
     }
     __syncwarp();
     // the 10 constraint rows: det E, then 2 E E^T E - tr(E E^T) E
     if (lane < 10) {
-      float row[20];
-      for (int q = 0; q < 20; ++q) row[q] = 0.f;
+      double row[20];
+      for (int q = 0; q < 20; ++q) row[q] = 0.0;
       if (lane == 0) {
-        float ma[10], mb[10], mi[10];
+        double ma[10], mb[10], mi[10];
         const int cols[3][2] = {{1, 2}, {0, 2}, {0, 1}};
-        const float sgn[3] = {1.f, -1.f, 1.f};
+        const double sgn[3] = {1.0, -1.0, 1.0};
         for (int c = 0; c < 3; ++c) {
           const int j0 = cols[c][0], j1 = cols[c][1];
           p11(sh.ep[3 + j0], sh.ep[6 + j1], ma);
           p11(sh.ep[3 + j1], sh.ep[6 + j0], mb);
-          for (int q = 0; q < 10; ++q) mi[q] = __fsub_rn(ma[q], mb[q]);
+          for (int q = 0; q < 10; ++q) mi[q] = __dsub_rn(ma[q], mb[q]);
           p21_acc(mi, sh.ep[c], sgn[c], row);
         }
       } else {
         const int i = (lane - 1) / 3, j = (lane - 1) % 3;
         for (int k = 0; k < 3; ++k) p21_acc(sh.c[3 * i + k], sh.ep[3 * k + j],
-                                            2.f, row);
-        float tr[10];
+                                            2.0, row);
+        double tr[10];
         for (int q = 0; q < 10; ++q)
-          tr[q] = __fadd_rn(__fadd_rn(sh.c[0][q], sh.c[4][q]), sh.c[8][q]);
-        p21_acc(tr, sh.ep[3 * i + j], -1.f, row);
+          tr[q] = __dadd_rn(__dadd_rn(sh.c[0][q], sh.c[4][q]), sh.c[8][q]);
+        p21_acc(tr, sh.ep[3 * i + j], -1.0, row);
       }
       for (int q = 0; q < 20; ++q) sh.m[lane][q] = row[q];
     }
@@ -463,17 +477,17 @@ __device__ void five_point(Sample& sh, const float* theta, int warp,
     // M[:, :10] P = M[:, 10:] by LU with partial pivoting; lane = column,
     // held in registers: the pivot found on its column's lane, the
     // multipliers sent by shuffle
-    float col[10];
+    double col[10];
 #pragma unroll
-    for (int r = 0; r < 10; ++r) col[r] = lane < 20 ? sh.m[r][lane] : 0.f;
+    for (int r = 0; r < 10; ++r) col[r] = lane < 20 ? sh.m[r][lane] : 0.0;
 #pragma unroll
     for (int k = 0; k < 10; ++k) {
       int p = k;
       if (lane == k) {
-        float best = fabsf(col[k]);
+        double best = fabs(col[k]);
 #pragma unroll
         for (int r = k + 1; r < 10; ++r) {
-          const float v = fabsf(col[r]);
+          const double v = fabs(col[r]);
           if (v > best) { best = v; p = r; }
         }
       }
@@ -481,32 +495,32 @@ __device__ void five_point(Sample& sh, const float* theta, int warp,
 #pragma unroll
       for (int r = k + 1; r < 10; ++r)
         if (r == p) {
-          const float t = col[k];
+          const double t = col[k];
           col[k] = col[r];
           col[r] = t;
         }
       if (lane == k) {
-        const float rcp = __frcp_rn(col[k]);
+        const double rcp = __drcp_rn(col[k]);
 #pragma unroll
-        for (int r = k + 1; r < 10; ++r) col[r] = __fmul_rn(col[r], rcp);
+        for (int r = k + 1; r < 10; ++r) col[r] = __dmul_rn(col[r], rcp);
       }
-      const float u = -col[k];
+      const double u = -col[k];
 #pragma unroll
       for (int r = k + 1; r < 10; ++r) {
-        const float l = __shfl_sync(0xffffffffu, col[r], k);
-        if (lane > k && lane < 20) col[r] = __fmaf_rn(l, u, col[r]);
+        const double l = __shfl_sync(0xffffffffu, col[r], k);
+        if (lane > k && lane < 20) col[r] = __fma_rn(l, u, col[r]);
       }
     }
     // back substitution, a right-hand side a lane (lanes 10..19)
 #pragma unroll
     for (int k = 9; k >= 0; --k) {
-      const float diag = __shfl_sync(0xffffffffu, col[k], k);
-      const float bk = __fdiv_rn(col[k], diag);
+      const double diag = __shfl_sync(0xffffffffu, col[k], k);
+      const double bk = __ddiv_rn(col[k], diag);
       if (lane >= 10 && lane < 20) col[k] = bk;
 #pragma unroll
       for (int r = 0; r < k; ++r) {
-        const float ur = __shfl_sync(0xffffffffu, col[r], k);
-        if (lane >= 10 && lane < 20) col[r] = __fmaf_rn(-bk, ur, col[r]);
+        const double ur = __shfl_sync(0xffffffffu, col[r], k);
+        if (lane >= 10 && lane < 20) col[r] = __fma_rn(-bk, ur, col[r]);
       }
     }
     if (lane >= 10 && lane < 20)
@@ -516,22 +530,24 @@ __device__ void five_point(Sample& sh, const float* theta, int warp,
     // B(z) from rows 4..9 of P (columns 10..19 of m), a row of B a lane
     if (lane < 3) {
       const int r = lane;
-      const float* pa = &sh.m[4 + 2 * r][10];
-      const float* pb = &sh.m[5 + 2 * r][10];
+      const double* pa = &sh.m[4 + 2 * r][10];
+      const double* pb = &sh.m[5 + 2 * r][10];
       // p = [P2, P1, P0, 0], q = [P5, P4, P3, 0], r = [P9, P8, P7, P6, 0];
       // B[r][c] = poly_a - z poly_b
-      const float ea[3][5] = {{pa[2], pa[1], pa[0], 0.f, 0.f},
-                              {pa[5], pa[4], pa[3], 0.f, 0.f},
-                              {pa[9], pa[8], pa[7], pa[6], 0.f}};
-      const float eb[3][5] = {{pb[2], pb[1], pb[0], 0.f, 0.f},
-                              {pb[5], pb[4], pb[3], 0.f, 0.f},
-                              {pb[9], pb[8], pb[7], pb[6], 0.f}};
+      const double ea[3][5] = {{pa[2], pa[1], pa[0], 0.0, 0.0},
+                               {pa[5], pa[4], pa[3], 0.0, 0.0},
+                               {pa[9], pa[8], pa[7], pa[6], 0.0}};
+      const double eb[3][5] = {{pb[2], pb[1], pb[0], 0.0, 0.0},
+                               {pb[5], pb[4], pb[3], 0.0, 0.0},
+                               {pb[9], pb[8], pb[7], pb[6], 0.0}};
       for (int c = 0; c < 3; ++c) {
         const int len = c == 2 ? 5 : 4;
-        sh.bp[r][c][0] = __fsub_rn(ea[c][0], 0.f);
+        sh.bp[r][c][0] = ea[c][0];
         for (int q = 1; q < len; ++q)
-          sh.bp[r][c][q] = __fsub_rn(ea[c][q], eb[c][q - 1]);
-        for (int q = len; q < 5; ++q) sh.bp[r][c][q] = 0.f;
+          sh.bp[r][c][q] = __dsub_rn(ea[c][q], eb[c][q - 1]);
+        for (int q = len; q < 5; ++q) sh.bp[r][c][q] = 0.0;
+        for (int q = 0; q < 5; ++q)
+          sh.bpf[r][c][q] = __double2float_rn(sh.bp[r][c][q]);
       }
     }
     __syncwarp();
@@ -542,26 +558,26 @@ __device__ void five_point(Sample& sh, const float* theta, int warp,
     if (lane < 3) {
       const int c = lane, c0 = cols[c][0], c1 = cols[c][1];
       const int l0 = c0 == 2 ? 5 : 4, l1 = c1 == 2 ? 5 : 4;
-      float d2[11];
+      double d2[11];
 #pragma unroll
-      for (int q = 0; q < 11; ++q) d2[q] = 0.f;
-      conv_acc<5, 5>(sh.bp[1][c0], l0, sh.bp[2][c1], l1, 1.f, d2);
-      conv_acc<5, 5>(sh.bp[1][c1], l1, sh.bp[2][c0], l0, -1.f, d2);
+      for (int q = 0; q < 11; ++q) d2[q] = 0.0;
+      conv_acc<5, 5>(sh.bp[1][c0], l0, sh.bp[2][c1], l1, 1.0, d2);
+      conv_acc<5, 5>(sh.bp[1][c1], l1, sh.bp[2][c0], l0, -1.0, d2);
 #pragma unroll
       for (int q = 0; q < 11; ++q) sh.d2[c][q] = d2[q];
     }
     __syncwarp();
     if (lane == 0) {
-      const float sgn[3] = {1.f, -1.f, 1.f};
-      float detb[11];
+      const double sgn[3] = {1.0, -1.0, 1.0};
+      double detb[11];
 #pragma unroll
-      for (int q = 0; q < 11; ++q) detb[q] = 0.f;
+      for (int q = 0; q < 11; ++q) detb[q] = 0.0;
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         conv_acc<5, 11>(sh.bp[0][c], c == 2 ? 5 : 4, sh.d2[c], 11, sgn[c],
                         detb);
 #pragma unroll
-      for (int q = 0; q < 11; ++q) sh.detb[q] = detb[q];
+      for (int q = 0; q < 11; ++q) sh.detb[q] = __double2float_rn(detb[q]);
     }
   }
   __syncthreads();

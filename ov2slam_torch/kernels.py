@@ -59,6 +59,11 @@ _SIGNATURES = {
                     _C.c_int, _C.c_void_p, _C.c_int, _C.c_void_p,
                     _C.c_void_p, _C.c_float, _C.c_int, _C.c_float,
                     _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+    # (a pointer to the host's argument struct, the stream)
+    "ba_normal_eq": ("ba_normal_eq_launch", _C.c_int,
+                     [_C.c_void_p, _C.c_void_p]),
+    "ba_schur_step": ("ba_schur_step_launch", _C.c_int,
+                      [_C.c_void_p, _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
 

@@ -222,3 +222,69 @@ def pnp_refine_bound(n: int, iters: int):
     return dict(ops=int(ops), bytes=int(nbytes),
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# f32 operations of csrc/ba_normal_eq.cu per observation row: the landmark
+# through its anchor (3 divisions, two rotations, the anchor's inverse),
+# the observer's and the right camera's rotations, the projection and its
+# residual, the 2x3 projection Jacobian through R_rl, the observer's 2x6
+# (a 2x3 by 3x3 product), R_cw and R_wc_a from their quaternions, J_Xw,
+# the anchor's 3x6 and 2x6 products, the inverse depth's, chi2, the Huber
+# weight and cost, the gauge; and per entry summed (w J_l^T J_r: 6 a 6x6
+# entry, 6 a pose or (landmark, pose) entry, 5 a landmark's two sums)
+BA_ROW_OPS = (3 + 2 * 33 + 3 + 33 + 3 + 33 + 3 + 10 + 2 + 8 + 30 + 30
+              + 2 * 27 + 30 + 45 + 60 + 21 + 10 + 3 + 10 + 24 + 3)
+BA_COST_ROW_OPS = 3 + 2 * 33 + 3 + 33 + 3 + 33 + 3 + 10 + 2 + 3 + 10 + 1
+BA_SUM_OPS = 4 * 36 * 6 + 2 * 6 * 6 + 2 * 6 * 6 + 10 + 1
+
+
+def ba_normal_eq_bound(Kw: int, Lw: int, O: int, cost: bool = False):
+    """The least time of one ``ba_normal_eq`` launch at Kw poses, Lw
+    landmark rows and O observation rows. The normal equations: each row's
+    terms (``BA_ROW_OPS``) and its entries in the sorted bins
+    (``BA_SUM_OPS``: four 6x6 blocks, two pose and two (landmark, pose)
+    entries, the landmark's and the cost's sums); bytes of the state, the
+    rows and the calibration read once, and of Hpp, bp, Z (every (landmark,
+    pose) entry, zeros included), Hrr, brho and the cost written once. The
+    bins' sorted permutations and offsets and the per-row record between
+    the kernel's two passes are its own traffic, not the function's. With
+    ``cost``, the cost mode: the rows' residuals and robust cost, the
+    candidate and current states read, the accept test's state written.
+    Returns ops, bytes, bound_ms, bound_by."""
+    state = 28 * Kw + 4 * Lw + 8 * Lw + 8 * Lw
+    rows = O * (8 + 8 + 8 + 1 + 4)
+    cal = 4 * 4 + 28
+    if cost:
+        ops = O * BA_COST_ROW_OPS + 2 * (7 * Kw + Lw)
+        nbytes = (state + rows + cal + 28 * Kw + 4 * Lw + 8
+                  + 28 * Kw + 4 * Lw + 8)
+    else:
+        ops = O * (BA_ROW_OPS + BA_SUM_OPS)
+        nbytes = (state + 4 * Kw + rows + cal + 144 * Kw * Kw + 24 * Kw
+                  + 24 * Lw * Kw + 8 * Lw + 4)
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=int(ops), bytes=int(nbytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def ba_schur_step_bound(Kw: int, Lw: int):
+    """The least time of ``ba_schur_step``'s two launches at Kw poses and
+    Lw landmark rows (the GEMM and the LU between them are library calls,
+    timed apart): f32 operations of the damping, Zn (a division an entry),
+    b (a product and a sum an entry of Z), the layout of S, the
+    back-substitution (the same for dx) and each pose's exponential and
+    composition (~150); bytes of Hpp, bp, Z, Hrr, brho, λ, the free flags,
+    the state and the solve's dx read once, and of S, Zn, Hrr_d, b and the
+    candidate state written once. Returns ops, bytes, bound_ms,
+    bound_by."""
+    n = 6 * Kw
+    ops = (4 * Lw + Lw * n + 2 * Lw * n + 3 * n * n + 2 * Lw * n + 4 * Lw
+           + 150 * Kw)
+    nbytes = (4 * Kw * Kw * 36 + 4 * n + 4 * Lw * n + 8 * Lw + 4 + 4 * Kw
+              + 28 * Kw + 4 * Lw + 4 * n
+              + 4 * n * n + 4 * Lw * n + 4 * Lw + 4 * n + 28 * Kw + 4 * Lw)
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=int(ops), bytes=int(nbytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")

@@ -15,9 +15,16 @@ import torch
 class SegmentSum:
     """Σ of rows into ``n`` bins by ``idx`` (int64, values in [0, n)):
     ``SegmentSum(idx, n)(v)`` equals ``zeros(n, ...).index_add_(0, idx, v)``
-    up to the order of the additions, which is fixed."""
+    up to the order of the additions, which is fixed. Rows where ``drop``
+    (bool) is true go to no bin: they are sorted after the last one, into
+    a bin of their own that is summed and cut off (``lengths`` counts it,
+    ``n + 1`` entries)."""
 
-    def __init__(self, idx: torch.Tensor, n: int):
+    def __init__(self, idx: torch.Tensor, n: int, drop=None):
+        self.n = n
+        if drop is not None:
+            idx = torch.where(drop, n, idx)
+            n += 1
         self.perm = torch.argsort(idx, stable=True)
         # a count by index_add_ rather than bincount, which reads the
         # largest index back to the host (no readback: a CUDA graph can
@@ -29,4 +36,4 @@ class SegmentSum:
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return torch.segment_reduce(v[self.perm], "sum",
                                     lengths=self.lengths, axis=0,
-                                    unsafe=True)
+                                    unsafe=True)[:self.n]

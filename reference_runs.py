@@ -39,7 +39,10 @@ ones. A seed given twice shows whether two runs agree to the last bit.
 ``--pose plain`` (with ``--port``) routes every caller of the pose
 functions (``essential_ransac``, ``pnp_refine``) to their plain versions,
 on the card too, so that one call can hold the kernels' runs against the
-plain path's.
+plain path's. ``--ba plain`` does the same for local BA's dense step
+(``normal_equations``, ``schur_step``, ``lm_accept``); ``--ba all_rows``
+also keeps the rows that are not valid in the solve's bins, as the step
+did before its kernels.
 
     JAX_PLATFORMS=cpu python reference_runs.py A B
     JAX_PLATFORMS=cpu python reference_runs.py C D
@@ -56,6 +59,7 @@ plain path's.
     python reference_runs.py --port --device cpu E
     python3 reference_runs.py --port A --seeds 42 42 1 2 3
     python3 reference_runs.py --port --pose plain A --seeds 42 1 2 3
+    python3 reference_runs.py --port --ba plain A --seeds 42 1 2 3 4 5
 """
 
 from __future__ import annotations
@@ -381,6 +385,11 @@ def main(argv) -> int:
     ap.add_argument("--pose", default="kernel", choices=["kernel", "plain"],
                     help="with --port: the pose functions' kernels (the "
                     "wrappers) or their plain versions")
+    ap.add_argument("--ba", default="kernel",
+                    choices=["kernel", "plain", "all_rows"],
+                    help="with --port: local BA's dense-step kernels (the "
+                    "wrappers), their plain versions, or those on bins "
+                    "that keep the rows that are not valid")
     args = ap.parse_args(argv)
 
     import chip_smoke
@@ -399,10 +408,12 @@ def main(argv) -> int:
         def managers(cfg):
             # each run happens between two yields, so inside the swap
             with (chip_smoke.Swap.plain_pose() if args.pose == "plain"
-                  else contextlib.nullcontext()):
+                  else contextlib.nullcontext()), (
+                      chip_smoke.Swap.plain_ba(args.ba == "all_rows")
+                      if args.ba != "kernel" else contextlib.nullcontext()):
                 for s in args.seeds or [42]:
-                    yield dict(seed=s, pose=args.pose), SlamManager(
-                        cfg, device=args.device, seed=s)
+                    yield dict(seed=s, pose=args.pose, ba=args.ba), \
+                        SlamManager(cfg, device=args.device, seed=s)
         package, backend = "ov2slam_torch", args.device
     else:
         # slice I shards over 8 virtual CPU devices; the flag must be set

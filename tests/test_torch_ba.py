@@ -126,8 +126,10 @@ def test_analytic_jacobians_vs_autograd(problem):
 
 @pytest.mark.parametrize("path", ["dense", "cg"])
 def test_one_lm_iteration_matches(problem, monkeypatch, path):
-    """One damped Schur step from the same state; ``cg`` lowers the dense
-    threshold on both sides so the matrix-free PCG branch runs."""
+    """One damped Schur step from the same state: ``dense`` through the
+    dense branch's plain versions (``normal_equations_plain`` with unit
+    weights, then ``schur_step_plain``); ``cg`` lowers the dense threshold
+    on both sides so the matrix-free PCG branch runs."""
     if path == "cg":
         monkeypatch.setattr(jbi, "DENSE_SCHUR_MAX_KFS", 2)
         monkeypatch.setattr(tbi, "DENSE_SCHUR_MAX_KFS", 2)
@@ -139,10 +141,19 @@ def test_one_lm_iteration_matches(problem, monkeypatch, path):
         jnp.float32(1e-3), jnp.asarray(anchor), jnp.asarray(ray),
         *_obs_args(obs, False), jnp.asarray(w), jnp.asarray(free),
         obs["params"])
-    tT, trho = tbi._solve_iteration_inv(
-        tlie.pose_inverse(T(poses0)), T(rho), torch.tensor(1e-3),
-        T(anchor).long(), T(ray), *_obs_args(obs, True), T(w), T(free),
-        tparams(obs))
+    T_cw, lam, anch = tlie.pose_inverse(T(poses0)), torch.tensor(1e-3), \
+        T(anchor).long()
+    obs_kf, obs_lm, obs_px, obs_cam = _obs_args(obs, True)
+    if path == "dense":
+        bins = tbi._bins(len(poses0), len(rho), obs_kf, anch[obs_lm], obs_lm)
+        ne = tbi.normal_equations_plain(
+            T_cw, T(rho), anch, T(ray), obs_kf, obs_lm, obs_px, obs_cam == 1,
+            T(w), T(free), bins, tparams(obs), 0.0)
+        tT, trho = tbi.schur_step_plain(T_cw, T(rho), lam, *ne[:5], T(free))
+    else:
+        tT, trho = tbi._solve_iteration_inv(
+            T_cw, T(rho), lam, anch, T(ray), obs_kf, obs_lm, obs_px, obs_cam,
+            T(w), T(free), tparams(obs))
     np.testing.assert_allclose(tT.numpy(), np.asarray(jT), atol=1e-4)
     np.testing.assert_allclose(trho.numpy(), np.asarray(jrho), rtol=1e-3,
                                atol=1e-5)

@@ -89,7 +89,7 @@ def test_residual_only_cost_is_the_jacobian_pass_residuals():
     """The LM loop takes the candidate's cost from the residual-only pass:
     its residuals and depth flags are the full pass's, bit for bit."""
     args, prm = _problem("cpu")
-    s = bi._prepare(*args[:8], args[9], 1e-3)
+    s = bi._prepare(*args[:8], args[9], 1e-3, args[8])
     full = bi._residuals_jacobians_inv(
         s["T_cw"], s["rho"], s["anchor"], s["lm_ray"], s["obs_kf"],
         s["obs_lm"], s["obs_px"], args[8], prm)

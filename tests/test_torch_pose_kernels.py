@@ -385,13 +385,17 @@ def _design(x_l, x_r):
 
 def five_point_mirror(x_l, x_r):
     """The kernel's 5-point on (S, 5, 2) samples: (Es (S, 10, 3, 3),
-    valid (S, 10))."""
+    valid (S, 10)). As in the kernel, the constraint rows, their solve and
+    det B run in f64 from the null space, then go back to the inputs'
+    dtype."""
     S = x_l.shape[0]
     null = householder_null_space(_design(x_l, x_r).transpose(-2, -1))
     basis = null.transpose(-2, -1).reshape(S, 4, 3, 3)
-    M = te._nister_constraints(basis)
+    M = te._nister_constraints(basis.double())
     P = lu_solve(M[..., :10], M[..., 10:])
     detB, B = te._nister_detB(P)
+    detB = detB.to(x_l.dtype)
+    B = [[B[i][j].to(x_l.dtype) for j in range(3)] for i in range(3)]
     z, valid = real_roots_mirror(detB)
     b = [[te._polyval(B[i][j], z) for j in range(3)] for i in range(2)]
     den = b[0][0] * b[1][1] - b[0][1] * b[1][0]

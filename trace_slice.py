@@ -178,6 +178,8 @@ HAND_KERNELS = {
     "essential_ransac": ("essential_ransac_kernel",),
     "pnp_refine": ("pnp_refine_kernel",),
     "hamming_score": ("score_kernel",),
+    "ba_normal_eq": ("ba_rows_kernel", "ba_sums_kernel"),
+    "ba_schur_step": ("schur_step_kernel",),
 }
 # a kernel's name, demangled or mangled (after its length), not inside a
 # longer identifier
