@@ -3410,24 +3410,19 @@ def _rel(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1e-6)).max())
 
 
-def ba_check(label, args, params, robust_th=BA_ROBUST_TH):
-    """Both kernels against their plain versions on the card on ``args``:
-    the normal equations at the start (each of Hpp, bp, Z, Hrr and brho
-    within ``BA_SUM_REL`` of its largest entry of the plain version's sums
-    in f64, or no farther from them than ``BA_SUM_F64_RATIO`` x the plain
-    f32 version; the cost within ``BA_COST_REL``); the Schur step
-    from the plain version's normal equations (poses within
-    ``BA_POSE_TOL``, inverse depths ``BA_RHO_REL`` relative); the cost mode
-    and the accept test on the plain candidate (cost within
-    ``BA_COST_REL``, the same decision, outputs equal); one whole LM
-    iteration through the kernels against one through the plain versions
-    (``BA_POSE_TOL``, ``BA_RHO_REL``, λ equal); each kernel's second launch
-    bit-equal to its first. Returns the figures."""
+def ba_sums(s, st, params, robust_th):
+    """The normal equations of the state ``s`` (:func:`ba_state`) through
+    the kernel and through the plain version, in f32 and in f64: returns
+    the launch's arguments, the kernel's and the plain f32 version's
+    outputs, and for each of Hpp, bp, Z, Hrr and brho its distances to
+    the f64 sums, its largest f64 entry, its distance to the plain f32
+    sums relative to their largest entry, and ``ok``: within
+    ``BA_SUM_REL`` of that largest entry, or no farther from f64 than
+    ``BA_SUM_F64_RATIO`` x the plain f32 version."""
     import torch
 
     from ov2slam_torch.solvers import ba_invdepth as bi
 
-    s, st = ba_state(args, params)
     ne = (s["T_cw"], s["rho"], *st, s["w_valid"], s["free"], s["bins"],
           params, robust_th)
     got = bi.normal_equations(*ne)
@@ -3452,6 +3447,28 @@ def ba_check(label, args, params, robust_th=BA_ROBUST_TH):
                               g, r),
                           ok=k_err <= max(BA_SUM_F64_RATIO * p_err,
                                           BA_SUM_REL * scale))
+    return ne, got, ref, sums
+
+
+def ba_check(label, args, params, robust_th=BA_ROBUST_TH):
+    """Both kernels against their plain versions on the card on ``args``:
+    the normal equations at the start (each of Hpp, bp, Z, Hrr and brho
+    within ``BA_SUM_REL`` of its largest entry of the plain version's sums
+    in f64, or no farther from them than ``BA_SUM_F64_RATIO`` x the plain
+    f32 version; the cost within ``BA_COST_REL``); the Schur step
+    from the plain version's normal equations (poses within
+    ``BA_POSE_TOL``, inverse depths ``BA_RHO_REL`` relative); the cost mode
+    and the accept test on the plain candidate (cost within
+    ``BA_COST_REL``, the same decision, outputs equal); one whole LM
+    iteration through the kernels against one through the plain versions
+    (``BA_POSE_TOL``, ``BA_RHO_REL``, λ equal); each kernel's second launch
+    bit-equal to its first. Returns the figures."""
+    import torch
+
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    s, st = ba_state(args, params)
+    ne, got, ref, sums = ba_sums(s, st, params, robust_th)
     sum_err = max(v["kernel_to_plain_rel"] for v in sums.values())
     abs_err = max(float((g - r).abs().max()) for g, r in zip(got[:5],
                                                              ref[:5]))
@@ -3505,6 +3522,65 @@ def ba_check(label, args, params, robust_th=BA_ROBUST_TH):
     return res
 
 
+def ba_worst_case(dev, n_kf: int = 32, kf: int = 5):
+    """:func:`ba_case`'s ``n_kf``-keyframe window with every valid row
+    observed from keyframe ``kf`` and every landmark anchored there: the
+    (kf, kf) (pose, pose) bin then holds four entries a valid row (tens of
+    thousands), the longest the normal equations can be given for these
+    rows. The pose Jacobians of such a row cancel (its point does not move
+    with the pose), so the window is for the sums, not for a step."""
+    import torch
+
+    args, prm = ba_case(n_kf, dev)
+    args = list(args)
+    valid = args[9]
+    args[5] = torch.where(valid, torch.full_like(args[5], kf), args[5])
+    args[3] = torch.where(args[3] >= 0, torch.full_like(args[3], kf),
+                          args[3])
+    return tuple(args), prm
+
+
+def ba_sums_check(label, args, params, robust_th=BA_ROBUST_TH):
+    """The normal equations' kernel against its plain version on ``args``
+    (:func:`ba_sums`: each sum within its gate; the cost within
+    ``BA_COST_REL``), the cost mode with the accept test on the state as
+    its own candidate against an infinite cost0 (cost within
+    ``BA_COST_REL``, both accept, the same outputs; a finite cost0 equal to
+    the candidate's cost would leave the decision to round-off), and a
+    second launch of each bit-equal to the first. Returns the figures,
+    with the busiest bin's entries."""
+    import torch
+
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    s, st = ba_state(args, params)
+    ne, got, ref, sums = ba_sums(s, st, params, robust_th)
+    cost_err = _rel(got[5], ref[5])
+    inf = torch.full_like(ref[5], float("inf"))
+    ac = (s["T_cw"], s["rho"], s["lam"], inf, s["T_cw"], s["rho"], *st,
+          s["w_valid"], params, robust_th)
+    acc_k = bi.lm_accept(*ac)
+    acc_p = bi.lm_accept_plain(*ac)
+    cost1_err = _rel(acc_k[3], acc_p[3])
+    same = bool(acc_k[2] == acc_p[2]) and all(
+        torch.equal(x, y) for x, y in zip(acc_k[:2], acc_p[:2]))
+    again = (bi.normal_equations(*ne), bi.lm_accept(*ac))
+    torch.cuda.synchronize()
+    bits = all(_bits_equal(x, y) for x, y in zip(
+        (*again[0], *again[1]), (*got, *acc_k)))
+    res = dict(label=label, longest_bin=ba_longest_bin(s["bins"]),
+               sums=sums, cost_rel_err=cost_err, cost1_rel_err=cost1_err,
+               accept_same=same, bit_equal=bits)
+    bad = [f"sums {k}" for k, v in sums.items() if not v["ok"]]
+    bad += [k for k in ("cost_rel_err", "cost1_rel_err")
+            if not res[k] <= BA_COST_REL]
+    bad += [k for k in ("accept_same", "bit_equal") if not res[k]]
+    if bad:
+        fail(f"ba {label}: the normal equations and their plain version "
+             f"disagree on {bad}: {res}")
+    return res
+
+
 def ba_solve_check(label, args, params, iters=(5, 3)):
     """The two-pass solve (robust pass, chi2 cull, L2 pass) eagerly
     through the kernels twice and once through the plain versions on the
@@ -3536,23 +3612,71 @@ def ba_solve_check(label, args, params, iters=(5, 3)):
     return res
 
 
+BA_DIGEST_OUTPUTS = ("Hpp", "bp", "Z", "Hrr", "brho", "cost", "S", "Zn",
+                     "Hrr_d", "b", "T_new", "rho_new", "T_out", "rho_out",
+                     "lam_out", "cost1")
+
+
+def ba_digests(args, params, robust_th=BA_ROBUST_TH):
+    """sha1 digests (16 hex digits) of every output of local BA's two
+    kernels at the start of the solve of ``args``: the normal equations
+    (Hpp, bp, Z, Hrr, brho, cost), the Schur step's prepare launch on them
+    (S before the Schur product, Zn, Hrr_d, b) and the whole step (T_new,
+    rho_new), and the cost mode with the accept test on its candidate
+    (T_out, rho_out, lam_out, cost1), in ``BA_DIGEST_OUTPUTS``' order. Two
+    builds of the kernels that print the same digests agree bit for bit
+    on these inputs. Only reported, never gated."""
+    import hashlib
+
+    import torch
+
+    from ov2slam_torch.solvers import ba_invdepth as bi
+
+    s, st = ba_state(args, params)
+    ne = bi.normal_equations(s["T_cw"], s["rho"], *st, s["w_valid"],
+                             s["free"], s["bins"], params, robust_th)
+    sc = (s["T_cw"], s["rho"], s["lam"], *ne[:5], s["free"])
+    prep = bi.schur_prepare(bi.pack_schur_step(*sc), s["T_cw"])
+    step = bi.schur_step(*sc)
+    acc = bi.lm_accept(s["T_cw"], s["rho"], s["lam"], ne[5], *step, *st,
+                       s["w_valid"], params, robust_th)
+    torch.cuda.synchronize()
+    return {k: hashlib.sha1(t.detach().cpu().contiguous().numpy()
+                            .tobytes()).hexdigest()[:16]
+            for k, t in zip(BA_DIGEST_OUTPUTS, (*ne, *prep, *step, *acc))}
+
+
+def ba_longest_bin(bins) -> int:
+    """Entries of the busiest bin the normal equations sum one after
+    another (a (pose, pose), pose, landmark or (landmark, pose) bin of
+    ``_bins``)."""
+    return max(int(bins[k].lengths[:bins[k].n].max()) if bins[k].n else 0
+               for k in ("pp", "pose", "lm", "lp"))
+
+
 def ba_timing(args, params, robust_th=BA_ROBUST_TH, runs: int = 20,
               plain_runs: int = 3):
     """Each kernel on ``args`` (ms: events around one call; device ms:
     ``runs`` calls queued behind a sleep; the plain version's ms; the
     bound): the normal equations and the cost mode with the accept test;
     the Schur step whole, and its two launches, the Schur product
-    (``torch.addmm``) and the LU (``torch.linalg.solve_ex``) apart, by
-    their device time in a trace of ``runs`` calls (:func:`ba_stage_split`;
-    the kernel's ``ms`` is its two launches' device time, each the mean of
-    its events: a trace may lose an event)."""
+    (``torch.addmm``) and the LU (``torch.linalg.solve_ex``, with its
+    bound) apart, by their device time in a trace of ``runs`` calls
+    (:func:`ba_stage_split`; the kernel's ``ms`` is its two launches'
+    device time, each the mean of its events: a trace may lose an event).
+    The two kernels' rows also give their longest sequential chain
+    (``roofline.ba_normal_eq_chain`` of the busiest bin,
+    ``ba_schur_step_chain``)."""
     from ov2slam_torch.roofline import (ba_normal_eq_bound,
-                                        ba_schur_step_bound)
+                                        ba_normal_eq_chain,
+                                        ba_schur_step_bound,
+                                        ba_schur_step_chain, lu_solve_bound)
     from ov2slam_torch.solvers import ba_invdepth as bi
 
     s, st = ba_state(args, params)
     Kw, Lw, O = (int(s["T_cw"].shape[0]), int(s["rho"].shape[0]),
                  int(s["obs_kf"].shape[0]))
+    longest = ba_longest_bin(s["bins"])
     ne = (s["T_cw"], s["rho"], *st, s["w_valid"], s["free"], s["bins"],
           params, robust_th)
     Hpp, bp, Z, Hrr, brho, cost0 = bi.normal_equations(*ne)
@@ -3595,12 +3719,16 @@ def ba_timing(args, params, robust_th=BA_ROBUST_TH, runs: int = 20,
                schur_update=traced("ba.schur_update", True),
                schur_product=traced("ba.schur_product",
                                     ops=2 * (6 * Kw) ** 2 * Lw),
-               lu_solve=traced("ba.solve"))
+               lu_solve=traced("ba.solve", **lu_solve_bound(6 * Kw)))
+    out["normal_eq"].update(longest_bin=longest,
+                            chain_ms=ba_normal_eq_chain(longest))
     launch_ms = out["schur_prepare"]["ms"] + out["schur_update"]["ms"]
     out["schur_kernel"] = dict(
         ms=launch_ms, device_ms=launch_ms,
         plain_ms=out["schur_step"]["plain_ms"],
-        kernel_launches_per_call=2, **ba_schur_step_bound(Kw, Lw))
+        kernel_launches_per_call=2,
+        chain_ms=ba_schur_step_chain(Lw, bi.SCHUR_B_CHAINS),
+        **ba_schur_step_bound(Kw, Lw))
     return out
 
 
@@ -3636,6 +3764,7 @@ def ba_stage_split(fn, runs: int = 1):
                                     "cudaMemset"))}
     by_name = {"ba_rows_kernel": "ba.normal_eq|cost_accept",
                "ba_sums_kernel": "ba.normal_eq|cost_accept",
+               "schur_prepare_kernel": "ba.schur_prepare|update",
                "schur_step_kernel": "ba.schur_prepare|update"}
     split, by_kernel = {}, {}
     for d in events:
@@ -3674,8 +3803,10 @@ def phase_ba(dev, captured):
     ``GRAPH_CALL``-th local BA problem (recorded by :class:`GraphCapture`,
     padded as ``GraphedTwoPass`` pads it): :func:`ba_check` on each,
     :func:`ba_solve_check` on slice B's and the 32-keyframe fixture's
-    two-pass solve; then each kernel's times on slice B's problem
-    (:func:`ba_timing`) and the stage split of its eager two-pass solve
+    two-pass solve, :func:`ba_sums_check` on :func:`ba_worst_case`'s
+    window; one line of :func:`ba_digests` of the fixtures' and slice B's
+    outputs (printed, never gated); then each kernel's times on slice B's
+    problem (:func:`ba_timing`) and the stage split of its eager two-pass solve
     through the kernels and through the plain versions on bins that keep
     the rows that are not valid (the solve as it was before the kernels,
     :func:`ba_stage_split`). Returns the figures."""
@@ -3698,18 +3829,25 @@ def phase_ba(dev, captured):
     run = bi.GraphedTwoPass(args, prm, kw["robust_th"], *iters)
     run._load(args)
     padded = tuple(run.inputs)
-    checks, solves = [], []
+    checks, solves, digests = [], [], {}
     for n_kf in BA_CASE_KFS:
         case, cprm = ba_case(n_kf, dev)
         for th in (BA_ROBUST_TH, 0.0):
             checks.append(ba_check(f"fixture {n_kf} KFs", case, cprm, th))
+            digests[f"fixture {n_kf} KFs {'huber' if th else 'l2'}"] = \
+                ba_digests(case, cprm, th)
         if n_kf == 32:
             solves.append(ba_solve_check("fixture 32 KFs", case, cprm))
+    worst, wprm = ba_worst_case(dev)
+    solves.append(ba_sums_check("worst case, 32 KFs", worst, wprm))
     for th in (kw["robust_th"], 0.0):
         checks.append(ba_check("slice B", padded, prm, th))
+        digests[f"slice B {'huber' if th else 'l2'}"] = ba_digests(
+            padded, prm, th)
     solves.append(ba_solve_check("slice B", padded, prm, iters))
     for r in checks + solves:
         print("[ba] " + json.dumps(r), flush=True)
+    print("[ba] digests " + json.dumps(digests), flush=True)
     timing = ba_timing(padded, prm, kw["robust_th"])
     print("[ba] slice B times " + json.dumps(timing), flush=True)
 

@@ -14,41 +14,57 @@
 // JAX package leaves to an einsum), then torch.linalg.solve_ex (LU with
 // partial pivoting, as jnp.linalg.solve), then mode 1.
 //
-// Mode 0 (prepare), one kernel, three independent sections:
-//   - b (6Kw): bp - sum_l Zn[l] brho[l], times the pose's free flag; a
-//     block a tile of 32 outputs, its 32 warps each summing every 32nd
-//     landmark (a lane an output, the loads coalesced, eight landmarks'
-//     loads in flight), the warps' sums added in warp order;
+// Mode 0 (prepare), schur_prepare_kernel, two sections:
+//   - b (6Kw): bp - sum_l Zn[l] brho[l], times the pose's free flag, and
+//     on the way Zn (Lw, Kw, 6) = Z / Hrr_d and Hrr_d = Hrr + lambda
+//     max(Hrr, 1e-6) + 1e-8 (each rounding step as torch takes it). Each
+//     output's sum is 32 chains, chain w over landmarks w, w + 32, ...,
+//     the chains' sums added in chain order. A CTA of 512 threads takes 4
+//     outputs (48 CTAs at Kw 32): all its threads compute a chunk of 1024
+//     landmarks' products into shared memory, then 128 of them add their
+//     chains' share of it while the rest go on to the next chunk;
 //   - S (6Kw x 6Kw): Hpp with lambda max(diag, 1e-6) added to the
 //     diagonal blocks' diagonals, zeroed where either pose is fixed, 1 on
 //     a fixed pose's diagonal, and 1e-6 on the diagonal: the system before
 //     the Schur product is subtracted (the plain version adds the pad and
 //     the 1e-6 after subtracting it, so those entries round in another
-//     order);
-//   - Zn (Lw, Kw, 6) = Z / Hrr_d and Hrr_d = Hrr + lambda max(Hrr, 1e-6)
-//     + 1e-8 (each rounding step as torch takes it), a thread an entry.
-// Mode 1 (update), one kernel: a warp a landmark, d_rho = (brho - Z[l] .
-//   dx) / Hrr_d (the lanes' strided sums, then a xor butterfly), rho +
-//   d_rho clamped at 1e-6; a thread a pose, exp(dx free) * T_cw (lie.py's
-//   se3_exp with its Taylor branches, then pose_compose).
+//     order).
+// Mode 1 (update), schur_step_kernel: a warp a landmark, d_rho = (brho -
+//   Z[l] . dx) / Hrr_d (the lanes' strided sums, then a xor butterfly),
+//   rho + d_rho clamped at 1e-6; a thread a pose, exp(dx free) * T_cw
+//   (lie.py's se3_exp with its Taylor branches, then pose_compose).
 //
 // Rounding: no atomics, every sum in one fixed order; two launches agree
-// bit for bit. Never build with --use_fast_math.
+// bit for bit, and with this file's first build (one kernel, b on one
+// CTA a tile of 32 outputs). Never build with --use_fast_math.
 //
 // Bound on an H100 SXM (roofline.py::ba_schur_step_bound), at slice B's
-// local BA (Kw 32, Lw 4096): bytes, Z read three times over the two modes
-// in the kernels but once in the bound, Zn and S written: ~6.5 MB, ~2 us;
-// operations ~4 MFLOP. Bytes bind. Mode 0's b section is the longest
-// chain: a warp's Lw / 32 landmarks one after another (its blocks, one a
-// tile of 32 outputs, are the only ones that sum).
+// local BA (Kw 32, Lw 4096): bytes, Z read twice over the two modes in
+// the kernels but once in the bound, Zn and S written: ~6.5 MB, ~2 us;
+// operations ~4 MFLOP. Bytes bind. The longest chain is a b chain's
+// Lw / 32 landmarks one after another, then the 32 chains' sums
+// (roofline.py::ba_schur_step_chain). Most of Z is zeros, and
+// __fdiv_rn takes its slow path for a zero numerator: div_rn gives those
+// quotients' zeros itself.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;           // the update's CTA
 constexpr int kWarps = kThreads / 32;
+constexpr int kPrepThreads = 512;        // the prepare's CTA
+// b's partial sums: output j's chain w (0 .. kChains - 1) adds landmarks
+// w, w + kChains, ...; a CTA of the prepare's b section holds the chains
+// of kBOutputs outputs and stages their products kChunk landmarks at a
+// time (kStaged a thread)
+constexpr int kChains = 32;
+constexpr int kBOutputs = 4;
+constexpr int kChunk = 1024;
+constexpr int kStaged = kChunk * kBOutputs / kPrepThreads;
+static_assert(kChunk % kChains == 0 && kPrepThreads % kBOutputs == 0,
+              "a chunk holds whole rounds of the chains");
 
 // field for field solvers/ba_invdepth.py::SchurArgs
 struct Args {
@@ -151,69 +167,111 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// first block of each section
-struct Sections {
-  int a, b, c, end;
-};
+// z / hd as __fdiv_rn rounds it. A zero z over a finite nonzero hd is a
+// zero with the sign of the two signs' product, given here: most of Z is
+// zeros, and __fdiv_rn takes its slow path for a zero numerator.
+__device__ __forceinline__ float div_rn(float z, float hd) {
+  const unsigned mag = __float_as_uint(hd) & 0x7fffffffu;
+  if (z == 0.f && mag != 0u && mag < 0x7f800000u)
+    return __int_as_float((__float_as_int(z) ^ __float_as_int(hd))
+                          & 0x80000000);
+  return __fdiv_rn(z, hd);
+}
 
-__global__ void __launch_bounds__(kThreads)
-    schur_step_kernel(const Args p, const Sections sec) {
+// Mode 0. CTAs 0 .. nb - 1: b, with Zn and Hrr_d on the way, for
+// outputs j0 .. j0 + kBOutputs - 1. The landmarks go kChunk at a time:
+// every thread computes kStaged of the chunk's (landmark, output)
+// products zn brho (zn = Z / Hrr_d, written to Zn), their loads issued
+// together, into one of two shared buffers; after the CTA's barrier,
+// thread (w, g), one of the first kChains * kBOutputs, adds output j0 +
+// g's products of landmarks w, w + kChains, ... of that chunk in order
+// (its chain's running sum carried over the chunks) while the others go
+// on to the next chunk; the chains' sums are then added in chain order.
+// The other CTAs: S before the product, an entry a thread.
+__global__ void __launch_bounds__(kPrepThreads)
+    schur_prepare_kernel(const Args p, int nb) {
   const int n = 6 * p.Kw;
   const float lam = p.lam[0];
   const int blk = blockIdx.x;
-  if (p.mode == 0) {
-    if (blk < sec.b) {
-      // b: outputs j0 .. j0 + 31, landmarks warp, warp + kWarps, ...
-      __shared__ float part[kWarps][32];
-      const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-      const int j = (blk - sec.a) * 32 + lane;
-      float acc = 0.f;
-      if (j < n) {
-#pragma unroll 8
-        for (int l = warp; l < p.Lw; l += kWarps) {
-          const float zn = __fdiv_rn(p.Z[static_cast<size_t>(l) * n + j],
-                                     damped(p.Hrr[l], lam));
-          acc = __fadd_rn(acc, __fmul_rn(zn, p.brho[l]));
+  if (blk < nb) {
+    __shared__ float prod[2][kChunk][kBOutputs];
+    __shared__ float part[kChains][kBOutputs];
+    const int t = threadIdx.x, g = t % kBOutputs;
+    const int j0 = blk * kBOutputs, j = j0 + g;
+    const bool hrr = blk == 0 && g == 0;
+    const bool chain = t < kChains * kBOutputs && j < n;
+    float acc = 0.f;
+    for (int L0 = 0, c = 0; L0 < p.Lw; L0 += kChunk, ++c) {
+      const int m = p.Lw - L0 < kChunk ? p.Lw - L0 : kChunk;
+      float(*buf)[kBOutputs] = prod[c & 1];
+      float z[kStaged], h[kStaged], r[kStaged];
+#pragma unroll
+      for (int k = 0; k < kStaged; ++k) {
+        const int i = (t + k * kPrepThreads) / kBOutputs, l = L0 + i;
+        const bool ok = i < m && j < n;
+        z[k] = ok ? __ldg(p.Z + static_cast<size_t>(l) * n + j) : 0.f;
+        h[k] = ok ? __ldg(p.Hrr + l) : 0.f;
+        r[k] = ok ? __ldg(p.brho + l) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kStaged; ++k) {
+        const int i = (t + k * kPrepThreads) / kBOutputs, l = L0 + i;
+        if (i < m && j < n) {
+          const float hd = damped(h[k], lam);
+          const float zn = div_rn(z[k], hd);
+          p.Zn[static_cast<size_t>(l) * n + j] = zn;
+          if (hrr) p.Hrr_d[l] = hd;
+          buf[i][g] = __fmul_rn(zn, r[k]);
         }
       }
-      part[warp][lane] = acc;
       __syncthreads();
-      if (warp == 0 && j < n) {
-        float s = 0.f;
-        for (int w = 0; w < kWarps; ++w) s = __fadd_rn(s, part[w][lane]);
-        p.b[j] = __fmul_rn(__fsub_rn(p.bp[j], s), p.free[j / 6]);
+      if (chain) {
+        const int w = t / kBOutputs;
+        if (m == kChunk) {
+          constexpr int kSteps = kChunk / kChains;
+          float v[kSteps];
+#pragma unroll
+          for (int k = 0; k < kSteps; ++k) v[k] = buf[w + k * kChains][g];
+#pragma unroll
+          for (int k = 0; k < kSteps; ++k) acc = __fadd_rn(acc, v[k]);
+        } else {
+          for (int i = w; i < m; i += kChains)
+            acc = __fadd_rn(acc, buf[i][g]);
+        }
       }
-      return;
     }
-    if (blk < sec.c) {
-      // S before the product: damped, masked, padded, 1e-6 I
-      const int t = (blk - sec.b) * kThreads + threadIdx.x;
-      if (t >= n * n) return;
-      const int i = t / n, j = t % n;
-      const int k = i / 6, a = i % 6, q = j / 6, bb = j % 6;
-      float h = p.Hpp[((static_cast<size_t>(k) * p.Kw + q) * 6 + a) * 6
-                      + bb];
-      const bool diag = k == q && a == bb;
-      if (diag) h = __fadd_rn(h, __fmul_rn(lam, fmaxf(h, 1e-6f)));
-      const bool fk = p.free[k] > 0.f, fq = p.free[q] > 0.f;
-      float v = (fk && fq) ? h : 0.f;
-      if (diag) v = __fadd_rn(v, fk ? 0.f : 1.f);
-      if (i == j) v = __fadd_rn(v, 1e-6f);
-      p.S[t] = v;
-      return;
+    if (t < kChains * kBOutputs) part[t / kBOutputs][g] = acc;
+    __syncthreads();
+    if (t < kBOutputs && j < n) {
+      float s = 0.f;
+      for (int c = 0; c < kChains; ++c) s = __fadd_rn(s, part[c][g]);
+      p.b[j] = __fmul_rn(__fsub_rn(p.bp[j], s), p.free[j / 6]);
     }
-    // Zn and Hrr_d
-    const int t = (blk - sec.c) * kThreads + threadIdx.x;
-    if (t >= p.Lw * n) return;
-    const int l = t / n;
-    const float hd = damped(p.Hrr[l], lam);
-    p.Zn[t] = __fdiv_rn(p.Z[t], hd);
-    if (t - l * n == 0) p.Hrr_d[l] = hd;
     return;
   }
-  if (blk < sec.b) {
+  // S before the product: damped, masked, padded, 1e-6 I
+  const int t = (blk - nb) * kPrepThreads + threadIdx.x;
+  if (t >= n * n) return;
+  const int i = t / n, j = t % n;
+  const int k = i / 6, a = i % 6, q = j / 6, bb = j % 6;
+  float h = p.Hpp[((static_cast<size_t>(k) * p.Kw + q) * 6 + a) * 6 + bb];
+  const bool diag = k == q && a == bb;
+  if (diag) h = __fadd_rn(h, __fmul_rn(lam, fmaxf(h, 1e-6f)));
+  const bool fk = p.free[k] > 0.f, fq = p.free[q] > 0.f;
+  float v = (fk && fq) ? h : 0.f;
+  if (diag) v = __fadd_rn(v, fk ? 0.f : 1.f);
+  if (i == j) v = __fadd_rn(v, 1e-6f);
+  p.S[t] = v;
+}
+
+// Mode 1: CTAs 0 .. nb - 1 a warp a landmark, then a thread a pose
+__global__ void __launch_bounds__(kThreads)
+    schur_step_kernel(const Args p, int nb) {
+  const int n = 6 * p.Kw;
+  const int blk = blockIdx.x;
+  if (blk < nb) {
     // the inverse depths: a warp a landmark
-    const int l = (blk - sec.a) * kWarps + threadIdx.x / 32;
+    const int l = blk * kWarps + threadIdx.x / 32;
     if (l >= p.Lw) return;
     const int lane = threadIdx.x & 31;
     const float* z = p.Z + static_cast<size_t>(l) * n;
@@ -227,7 +285,7 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
   // the poses: a thread a pose
-  const int k = (blk - sec.b) * kThreads + threadIdx.x;
+  const int k = (blk - nb) * kThreads + threadIdx.x;
   if (k >= p.Kw) return;
   float xi[6];
   for (int c = 0; c < 6; ++c) xi[c] = p.dx[6 * k + c] * p.free[k];
@@ -247,16 +305,15 @@ extern "C" int ba_schur_step_launch(const void* args, void* stream) {
       || 6LL * p.Lw * p.Kw >= (1LL << 31))
     return -1;
   const long long n = 6LL * p.Kw;
-  Sections sec{0, 0, 0, 0};
+  const auto s = static_cast<cudaStream_t>(stream);
   if (p.mode == 0) {
-    sec.b = blocks(n, 32);
-    sec.c = sec.b + blocks(n * n, kThreads);
-    sec.end = sec.c + blocks(n * p.Lw, kThreads);
+    const int nb = blocks(n, kBOutputs);
+    schur_prepare_kernel<<<nb + blocks(n * n, kPrepThreads), kPrepThreads,
+                           0, s>>>(p, nb);
   } else {
-    sec.b = blocks(p.Lw, kWarps);
-    sec.c = sec.end = sec.b + blocks(p.Kw, kThreads);
+    const int nb = blocks(p.Lw, kWarps);
+    const int grid = nb + blocks(p.Kw, kThreads);
+    schur_step_kernel<<<grid, kThreads, 0, s>>>(p, nb);
   }
-  schur_step_kernel<<<sec.end, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(p, sec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -288,3 +288,43 @@ def ba_schur_step_bound(Kw: int, Lw: int):
     return dict(ops=int(ops), bytes=int(nbytes),
                 bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# one f32 addition waiting on the one before it (the FADD latency, SM
+# cycles): the dependent step of local BA's sums, each summed from 0 one
+# entry after another in the order that fixes its bits. An entry of a bin
+# in csrc/ba_normal_eq.cu's sums (a shared load and an addition), a
+# landmark of a b chain in csrc/ba_schur_step.cu's prepare.
+BA_ADD_CYCLES = 4
+
+
+def ba_normal_eq_chain(longest_bin: int) -> float:
+    """The least time of ``ba_normal_eq``'s normal-equations launch set by
+    its longest chain: the busiest bin's entries (a diagonal (pose, pose)
+    bin's, which holds every other bin's share of its pose) one dependent
+    addition each at ``SM_CLOCK_HZ``. Returns ms."""
+    return 1e3 * longest_bin * BA_ADD_CYCLES / SM_CLOCK_HZ
+
+
+def ba_schur_step_chain(Lw: int, chains: int) -> float:
+    """The least time of the Schur step's prepare launch set by its b
+    chains: each output of b is ``chains`` chains (the kernel's own count,
+    ``ba_invdepth.SCHUR_B_CHAINS``), one over every ``chains``-th of the
+    ``Lw`` landmarks, one dependent addition a landmark, then the chains'
+    partial sums added in order. Returns ms."""
+    steps = -(-Lw // chains) + chains
+    return 1e3 * steps * BA_ADD_CYCLES / SM_CLOCK_HZ
+
+
+def lu_solve_bound(n: int):
+    """The least time of ``torch.linalg.solve_ex`` on one n x n f32 system
+    with one right-hand side: an LU with partial pivoting (~2/3 n^3
+    operations) and the two triangular solves (2 n^2); bytes of the matrix
+    and the vector read once and the solution written once. Returns ops,
+    bytes, bound_ms, bound_by."""
+    ops = 2 * n ** 3 // 3 + 2 * n * n
+    nbytes = 4 * n * n + 4 * n + 4 * n
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=int(ops), bytes=int(nbytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")

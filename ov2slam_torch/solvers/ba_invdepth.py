@@ -523,11 +523,7 @@ def schur_step(T_cw, rho, lam, Hpp, bp, Z, Hrr, brho, free):
     a = pack_schur_step(T_cw, rho, lam, Hpp, bp, Z, Hrr, brho, free)
     Kw, Lw, n = a.Kw, a.Lw, 6 * a.Kw
     new, dev = T_cw.new_empty, T_cw.device
-    with _stage("ba.schur_prepare"):
-        S, Zn, Hrr_d, b = new((n, n)), new((Lw, Kw, 6)), new(Lw), new((n, 1))
-        a.S, a.Zn, a.Hrr_d, a.b = (t.data_ptr() for t in (S, Zn, Hrr_d, b))
-        a.mode = SCHUR_PREPARE
-        _launch("ba_schur_step", a, schur_step, ("prepare", Kw, Lw), dev)
+    S, Zn, Hrr_d, b = schur_prepare(a, T_cw)
     with _stage("ba.schur_product"):
         S.addmm_(Zn.view(-1, n).t(), Z.view(-1, n), alpha=-1.0)
     with _stage("ba.solve"):
@@ -542,6 +538,21 @@ def schur_step(T_cw, rho, lam, Hpp, bp, Z, Hrr, brho, free):
         a.mode = SCHUR_UPDATE
         _launch("ba_schur_step", a, schur_step, ("update", Kw, Lw), dev)
     return T_new, rho_new
+
+
+def schur_prepare(a, T_cw):
+    """:func:`schur_step`'s first launch on the packed ``a``
+    (:func:`pack_schur_step`) on the current stream: returns S before the
+    Schur product (6Kw, 6Kw), Zn (Lw, Kw, 6), Hrr_d (Lw,) and b (6Kw, 1)."""
+    Kw, Lw, n = a.Kw, a.Lw, 6 * a.Kw
+    new = T_cw.new_empty
+    with _stage("ba.schur_prepare"):
+        S, Zn, Hrr_d, b = new((n, n)), new((Lw, Kw, 6)), new(Lw), new((n, 1))
+        a.S, a.Zn, a.Hrr_d, a.b = (t.data_ptr() for t in (S, Zn, Hrr_d, b))
+        a.mode = SCHUR_PREPARE
+        _launch("ba_schur_step", a, schur_step, ("prepare", Kw, Lw),
+                T_cw.device)
+    return S, Zn, Hrr_d, b
 
 
 def lm_accept(T_cw, rho, lam, cost0, T_new, rho_new, anchor, lm_ray,
@@ -584,8 +595,11 @@ PLAIN_VERSIONS = (normal_equations_plain, schur_step_plain, lm_accept_plain)
 
 # kernels each launch call starts: csrc/ba_normal_eq.cu's row pass and its
 # sums (or the cost's reduction with the accept test); csrc/ba_schur_step.cu
-# one
+# one (its prepare kernel or its update kernel)
 KERNELS_PER_LAUNCH = {"ba_normal_eq": 2, "ba_schur_step": 1}
+# csrc/ba_schur_step.cu's kChains: the chains each output of b is summed
+# in (one over every 32nd landmark, then their partial sums in order)
+SCHUR_B_CHAINS = 32
 # the kernels' sizes: Kw up to the dense branch's; the rows and bins of one
 # launch index with 32-bit ints
 MAX_KFS = DENSE_SCHUR_MAX_KFS

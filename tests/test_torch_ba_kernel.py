@@ -23,7 +23,13 @@ each test:
 - the launch packing (on ``chip_smoke.ba_case``'s 6-keyframe window): the
   ctypes structures field for field the C sources' ``Args``, and every
   refusal (f64, a strided tensor, a wrong shape, 65 poses, bins that are
-  not the dense branch's).
+  not the dense branch's);
+- on the fixtures no (k, q) bin or pose bin k is longer than (k, k),
+  which is why the sums kernel starts the diagonal bins first;
+  ``chip_smoke.ba_worst_case`` puts every valid row in one diagonal bin;
+- ``roofline.py``'s chains of both kernels (the Schur step's at the
+  kernel's own ``kChains``) and the LU's bound, at the figures PERF.md
+  gives.
 
 On the card (skipped without one, decided inside the test; the fixtures
 are ``chip_smoke.ba_case``'s, numpy from a seed): each kernel against its
@@ -32,11 +38,14 @@ rows, a row behind its camera; rows not a multiple of the kernels' blocks)
 to chip_smoke's bars (``chip_smoke.ba_check``: each sum within 1e-4 of
 its largest entry of an f64 plain solve's, or no farther from it than 2x
 the plain f32 version; cost 1e-5, poses 1e-4, inverse depths 1e-3
-relative; a second launch bit-equal); the two-pass solve within 1e-3, masks equal; two
-windows' LM iterations issued together on two streams, each bit-equal to
-its iteration alone (the kernels keep no state between launches: no
-ticket); a ``GraphedTwoPass`` replay bit-equal to its eager solve, its
-launches counted at each replay; the launch checks raising on an f64
+relative; a second launch bit-equal); the normal equations into outputs
+full of NaN at 1, 7 and 64 keyframes equal to a usual launch's (every
+entry written); the worst case's normal equations and cost mode
+(``chip_smoke.ba_sums_check``); the two-pass solve within 1e-3, masks
+equal; two windows' LM iterations issued together on two streams, each
+bit-equal to its iteration alone (the kernels keep no state between
+launches: no ticket); a ``GraphedTwoPass`` replay bit-equal to its eager
+solve, its launches counted at each replay; the launch checks raising on an f64
 tensor, a tensor on another device and 65 keyframes. The file imports no
 JAX at module level: on the card ``python -m pytest --noconftest
 tests/test_torch_ba_kernel.py`` runs it (the tests that hold the JAX
@@ -350,6 +359,67 @@ def test_pack_schur_step_refuses_what_the_kernel_does_not_take():
                            *ne[1:5], s["free"])
 
 
+@pytest.mark.parametrize("n_kf", [2, 6, 32])
+def test_diagonal_bins_are_the_longest(n_kf):
+    """The sums kernel starts the diagonal (pose, pose) bins first because
+    no (k, q) bin and no pose bin k holds more entries than (k, k)."""
+    args, prm = chip_smoke.ba_case(n_kf, torch.device("cpu"))
+    s, _ = chip_smoke.ba_state(args, prm)
+    pp = s["bins"]["pp"].lengths[:n_kf * n_kf].reshape(n_kf, n_kf)
+    diag = pp.diagonal()
+    assert bool((pp <= diag[:, None]).all())
+    assert bool((s["bins"]["pose"].lengths[:n_kf] <= diag).all())
+    assert chip_smoke.ba_longest_bin(s["bins"]) == int(diag.max())
+
+
+def test_worst_case_puts_every_row_in_one_diagonal_bin():
+    args, prm = chip_smoke.ba_worst_case(torch.device("cpu"))
+    s, _ = chip_smoke.ba_state(args, prm)
+    Kw = s["T_cw"].shape[0]
+    pp = s["bins"]["pp"].lengths[:Kw * Kw]
+    valid = int(args[9].sum())
+    assert int(pp[5 * Kw + 5]) == 4 * valid >= 4096
+    assert int(pp.sum()) == 4 * valid
+    assert chip_smoke.ba_longest_bin(s["bins"]) == 4 * valid
+
+
+# the figures PERF.md gives for slice B's problem (2610 entries in its
+# busiest bin, 4096 landmarks, a 192-wide system) and the worst case
+@pytest.mark.parametrize("entries,ms", [(0, 0.0), (32, 6.4646e-5),
+                                        (2610, 5.2727e-3),
+                                        (80364, 0.16235)])
+def test_roofline_ba_normal_eq_chain(entries, ms):
+    from ov2slam_torch import roofline as rf
+
+    assert rf.ba_normal_eq_chain(entries) == pytest.approx(ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("Lw,ms", [(1, 6.6667e-5), (32, 6.6667e-5),
+                                   (4096, 3.2323e-4), (4097, 3.2525e-4)])
+def test_roofline_ba_schur_step_chain(Lw, ms):
+    """At the kernel's own chain count: ``SCHUR_B_CHAINS`` is
+    csrc/ba_schur_step.cu's ``kChains``."""
+    from ov2slam_torch import roofline as rf
+
+    with open(os.path.join(kernels.CSRC, "ba_schur_step.cu")) as f:
+        chains = int(re.search(r"constexpr int kChains = (\d+);",
+                               f.read()).group(1))
+    assert bi.SCHUR_B_CHAINS == chains
+    assert rf.ba_schur_step_chain(Lw, chains) == pytest.approx(ms, rel=1e-4)
+
+
+@pytest.mark.parametrize("n,ops,nbytes,by", [
+    (12, 1440, 672, "bytes"), (192, 4792320, 148992, "operations"),
+    (384, 38043648, 592896, "operations")])
+def test_roofline_lu_solve_bound(n, ops, nbytes, by):
+    from ov2slam_torch import roofline as rf
+
+    b = rf.lu_solve_bound(n)
+    assert (b["ops"], b["bytes"], b["bound_by"]) == (ops, nbytes, by)
+    assert b["bound_ms"] == pytest.approx(
+        1e3 * max(ops / rf.F32_FLOP_PER_S, nbytes / rf.HBM_BYTES_PER_S))
+
+
 # --------------------------------------------------------------- card #
 
 def _card():
@@ -365,6 +435,40 @@ def test_cuda_kernels_match_plain(n_kf, th):
     args, prm = chip_smoke.ba_case(n_kf, dev)
     assert args[5].shape[0] % 128 != 0
     chip_smoke.ba_check(f"fixture {n_kf} KFs", args, prm, th)
+
+
+@pytest.mark.parametrize("n_kf", [1, 7, 64])
+def test_cuda_normal_equations_write_every_output(n_kf, monkeypatch):
+    """Every entry of Hpp, bp, Z, Hrr, brho and the cost is written by the
+    launch: into outputs allocated full of NaN it gives a launch's usual
+    outputs, bit for bit (one keyframe without the extra rows, which need
+    a second)."""
+    dev = _card()
+    args, prm = chip_smoke.ba_case(n_kf, dev, extras=n_kf > 1)
+    s, st = chip_smoke.ba_state(args, prm)
+    ne = (s["T_cw"], s["rho"], *st, s["w_valid"], s["free"], s["bins"],
+          prm, TH)
+    want = bi.normal_equations(*ne)
+    new_empty = torch.Tensor.new_empty
+    monkeypatch.setattr(torch.Tensor, "new_empty", lambda t, *a, **k:
+                        new_empty(t, *a, **k).fill_(float("nan")))
+    got = bi.normal_equations(*ne)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        assert torch.equal(g, w)
+
+
+def test_cuda_worst_case_diagonal_bin_matches_plain():
+    """Every valid row of a 32-keyframe window in one diagonal bin (tens of
+    thousands of entries: the sums kernel's ring of tiles wraps thousands
+    of times): the normal equations and the cost mode against their plain
+    versions to chip_smoke's gates, two launches bit-equal."""
+    dev = _card()
+    args, prm = chip_smoke.ba_worst_case(dev)
+    res = chip_smoke.ba_sums_check("worst case", args, prm)
+    assert res["longest_bin"] >= 4096 and res["bit_equal"]
 
 
 def test_cuda_two_pass_solve_matches_plain():

@@ -179,7 +179,7 @@ HAND_KERNELS = {
     "pnp_refine": ("pnp_refine_kernel",),
     "hamming_score": ("score_kernel",),
     "ba_normal_eq": ("ba_rows_kernel", "ba_sums_kernel"),
-    "ba_schur_step": ("schur_step_kernel",),
+    "ba_schur_step": ("schur_prepare_kernel", "schur_step_kernel"),
 }
 # a kernel's name, demangled or mangled (after its length), not inside a
 # longer identifier
