@@ -14,9 +14,10 @@ Phases (any failure exits non-zero):
      ``SlamManager`` with the loop closer on — gates on closures, resets,
      ATE and endpoint error, and on the scorer and the KLT having run as
      their kernels (and never as a plain version on the card; every SLAM
-     slice, A-F and H, is held to the KLT kernel so, and to having
-     replayed its keyframe detection and, with inverse-depth BA, its local
-     BA as CUDA graphs);
+     slice, A-F and H, is held to the KLT kernel so, to the undistortion
+     and filter kernels and, where its profile runs CLAHE, CLAHE's
+     (``gate_image_launches``), and to having replayed its keyframe
+     detection and, with inverse-depth BA, its local BA as CUDA graphs);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
      ``accurate`` profile and the default 2048-keyframe index — gates on
      ATE and resets, reports fps and the profiler's per-stage times; then
@@ -68,7 +69,17 @@ Phases (any failure exits non-zero):
      versions and through the kernels; every SLAM slice with
      inverse-depth local BA and the bench must launch both kernels, and no
      run may call their plain versions on the card
-     (``gate_ba_launches``);
+     (``gate_ba_launches``); then the image and camera kernels
+     (``csrc/undistort_points.cu``, ``csrc/separable_filter.cu``,
+     ``csrc/clahe.cu``; ``phase_image``) against their plain versions on
+     the card, atol 0: at 752x480, 376x240, 1241x376, 640x480 and 377x241
+     on a fixture (CLAHE, its pyramid, the BRIEF blur, the box filter,
+     both Scharr gradients; the undistortion and both distortion modes of
+     512 pixels through a radtan and a fisheye camera, the radtan
+     undistortion map, ``Camera.undistort_px``) and on slices A's and B's
+     frame 40 (CLAHE and the filters); a second launch equal to the
+     first; one line of output digests (``[image] digests``); each kernel
+     timed at slice B's call (ms, device ms, plain ms, bound);
   6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
      BA, results written — gates on mono initialization, post-init frames,
      scale-aligned ATE, resets and the result files;
@@ -150,10 +161,9 @@ one JSON line of
 the plain-torch work with a bound (TSDF integration, the ESDF sweep, an LM
 iteration of the distributed BA), one JSON line of the graph steps' rows,
 one JSON line of kernel records (the KLT
-kernel, the RANSAC and PnP kernels, local BA's two kernels, and the
-scorer), the card's name and
-power limit, and the final
-``{"ok": true, "device": ...}`` line.
+kernel, the RANSAC and PnP kernels, local BA's two kernels, the
+undistortion, filter and CLAHE kernels, and the scorer), the card's name
+and power limit, and the final ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
 fixed seeds.
@@ -790,6 +800,7 @@ def run_slice(name: str, dev, seq=None):
     hamming.match_scores_plain.cuda_runs = 0
     reset_klt_counts()
     reset_pose_counts()
+    reset_image_counts()
     reset_graph_counts()
     synchronize(dev)
     t0 = time.perf_counter()
@@ -798,6 +809,7 @@ def run_slice(name: str, dev, seq=None):
     wall = time.perf_counter() - t0
     klt = klt_counts()
     pose = pose_counts()
+    image = image_counts()
     graph = graph_counts()
     launches = hamming.match_scores_bits.launches
     shapes = dict(hamming.match_scores_bits.shapes)
@@ -826,13 +838,15 @@ def run_slice(name: str, dev, seq=None):
                index_rows=len(slam.loop_closer.index.kf_ids),
                lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
                index_cube_bytes=slam.loop_closer.index._cube.numel(),
-               **klt, **pose, **graph, inverse_depth=cfg.use_inv_depth,
+               **klt, **pose, **image, use_clahe=cfg.use_clahe, **graph,
+               inverse_depth=cfg.use_inv_depth,
                stereo=cfg.stereo)
     print(f"[slice {name}] " + json.dumps(res), flush=True)
     print(f"[slice {name}] per-stage times (ms):\n" + prof.summary(),
           flush=True)
     gate_klt_launches(name, res)
     gate_pose_launches(name, res)
+    gate_image_launches(name, res, cfg.use_clahe)
     gate_graphs(name, res, cfg.use_inv_depth, cfg.stereo)
     if launches <= 0:
         fail(f"slice {name}: the scorer kernel never launched")
@@ -1041,6 +1055,7 @@ def run_async_slice(name: str, dev, seq=None):
     hamming.match_scores_plain.cuda_runs = 0
     reset_klt_counts()
     reset_pose_counts()
+    reset_image_counts()
     reset_graph_counts()
     syncs = DispatchSyncCounter(slam.frontend, first=10 if name == "F"
                                 else 20)
@@ -1063,6 +1078,7 @@ def run_async_slice(name: str, dev, seq=None):
     joined = not slam._worker.is_alive()
     klt = klt_counts()
     pose = pose_counts()
+    image = image_counts()
     graph = graph_counts()
     launches = hamming.match_scores_bits.launches
     shapes = dict(hamming.match_scores_bits.shapes)
@@ -1100,7 +1116,8 @@ def run_async_slice(name: str, dev, seq=None):
                map_lock_wait_ms={k: 1e3 * v for k, v in
                                  sorted(waits.wait_s.items())},
                map_lock_handoffs=slam.map_lock.handoffs, **klt,
-               **pose, **graph, inverse_depth=cfg.use_inv_depth,
+               **pose, **image, use_clahe=cfg.use_clahe, **graph,
+               inverse_depth=cfg.use_inv_depth,
                stereo=cfg.stereo)
     if slam.loop_closer is not None:
         q = prof.stats().get("4.LC_QueryIndex", dict(n=0, mean_ms=0.0))
@@ -1132,6 +1149,7 @@ def gate_async(r, b=None) -> None:
         fail(f"slice {name}: the plain scorer ran on cuda")
     gate_klt_launches(name, r)
     gate_pose_launches(name, r)
+    gate_image_launches(name, r, r["use_clahe"])
     gate_graphs(name, r, r["inverse_depth"], r["stereo"])
     sd = r["sync_debug"]
     print(f"[slice {name}] synchronizing calls reported by "
@@ -1604,12 +1622,14 @@ def run_slice_h(part: str, dev):
         hamming.match_scores_plain.cuda_runs = 0
         reset_klt_counts()
         reset_pose_counts()
+        reset_image_counts()
         reset_graph_counts()
         t0 = time.perf_counter()
         report, slam = run_slam.main(argv + ["--device", str(dev)])
         run_s = time.perf_counter() - t0
         klt = klt_counts()
         pose = pose_counts()
+        image = image_counts()
         graph = graph_counts()
         launches = hamming.match_scores_bits.launches
         shapes = dict(hamming.match_scores_bits.shapes)
@@ -1633,8 +1653,8 @@ def run_slice_h(part: str, dev):
                index_cube_bytes=(lc.index._cube.numel() if lc is not None
                                  else 0),
                worker_errors=getattr(slam, "n_worker_errors", None),
-               **klt, **pose, **graph,
-               inverse_depth=slam.cfg.use_inv_depth)
+               **klt, **pose, **image, use_clahe=slam.cfg.use_clahe,
+               **graph, inverse_depth=slam.cfg.use_inv_depth)
     print(f"[slice H] {part}: " + json.dumps(res), flush=True)
     return res
 
@@ -1652,6 +1672,7 @@ def gate_slice_h(r) -> None:
         fail(f"slice H {part}: the plain scorer ran on cuda")
     gate_klt_launches(f"H {part}", r)
     gate_pose_launches(f"H {part}", r)
+    gate_image_launches(f"H {part}", r, r["use_clahe"])
     gate_graphs(f"H {part}", r, r["inverse_depth"], r["stereo"])
     if part == "kitti" and r["scorer_launches"] < 1:
         fail("slice H kitti: the scorer kernel never launched under the CLI")
@@ -3876,6 +3897,334 @@ def phase_ba(dev, captured):
 
 
 # ---------------------------------------------------------------------- #
+# phase image: the undistortion, separable-filter and CLAHE kernels
+# ---------------------------------------------------------------------- #
+
+# (W, H): slice B and E-F, slice A, slice H's KITTI (CLAHE's ragged
+# tiles), its TartanAir, and an odd size (ragged tiles, odd levels)
+IMAGE_SIZES = ((752, 480), (376, 240), (1241, 376), (640, 480), (377, 241))
+IMAGE_POINTS = 512        # points a call (the front end's slots)
+IMAGE_FRAME = 40          # slices A's and B's frame held and timed
+# a clip limit whose f32 limit has many fractional bits at 1241x376 and
+# 377x241 (7332 and 1488 pixels a tile), where the order of CLAHE's excess
+# sum decides its bits
+IMAGE_ODD_CLIP = 2.7
+# EuRoC's cam0 (radtan) and a Kannala-Brandt fixture, as
+# tests/test_torch_image_camera.py's CAMS: (fx, fy, cx, cy), coefficients
+IMAGE_CAMS = dict(
+    radtan=((458.654, 457.296, 367.215, 248.375),
+            (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)),
+    fisheye=((380.0, 380.0, 320.0, 240.0), (-0.013, 0.021, -0.017, 0.0045)))
+
+
+def reset_image_counts() -> None:
+    """Zero the image and camera kernels' launch counters and their plain
+    versions' calls on CUDA tensors."""
+    from ov2slam_torch.core import camera, image
+
+    for fn in (camera.undistort_points, image.separable_filter,
+               image.clahe):
+        fn.launches = 0
+        fn.shapes.clear()
+        fn.origins.clear()
+    for fn in image_plain_versions():
+        fn.cuda_runs = 0
+
+
+def image_plain_versions():
+    from ov2slam_torch.core import camera, image
+
+    return (camera.undistort_points_plain, camera.distort_points_plain,
+            image.separable_filter_plain, image.clahe_plain)
+
+
+def image_counts():
+    """The counters :func:`reset_image_counts` zeroes: each library's
+    launches (a CLAHE launch is two kernels; a launch inside a CUDA graph
+    counts at each replay), and the plain versions' calls on CUDA
+    tensors."""
+    from ov2slam_torch.core import camera, image
+
+    return dict(undistort_launches=camera.undistort_points.launches,
+                filter_launches=image.separable_filter.launches,
+                clahe_launches=image.clahe.launches,
+                image_plain_runs_on_cuda=sum(
+                    fn.cuda_runs for fn in image_plain_versions()))
+
+
+def gate_image_launches(name: str, counts, use_clahe: bool) -> None:
+    """Every SLAM slice undistorts its tracks with the undistortion kernel
+    and builds its pyramids with the filter kernel, and runs CLAHE's
+    kernels where its profile turns CLAHE on; no run calls a plain version
+    of the three on the card."""
+    for key, what, needed in (
+            ("undistort_launches", "undistort_points", True),
+            ("filter_launches", "separable_filter", True),
+            ("clahe_launches", "clahe", use_clahe)):
+        if needed and counts[key] < 1:
+            fail(f"slice {name}: the {what} kernel never launched")
+    if counts["image_plain_runs_on_cuda"] != 0:
+        fail(f"slice {name}: the plain image and camera functions ran "
+             f"{counts['image_plain_runs_on_cuda']} times on cuda")
+
+
+def image_fixture(W: int, H: int, seed: int = 0):
+    """A smooth f32 image of (H, W) with noise, in [0, 255] but for three
+    pixels outside it (CLAHE's clamp to its bins)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    img = (128.0 + 90.0 * np.sin(xx / 37.0) * np.cos(yy / 23.0)
+           + rng.normal(0.0, 12.0, (H, W)))
+    img = np.clip(img, 0.0, 255.0).astype(np.float32)
+    img[0, :3] = (-3.5, 255.7, 300.0)
+    return img
+
+
+def image_camera(kind: str, dev):
+    """(fx, fy, cx, cy, dist) of ``IMAGE_CAMS[kind]`` as the front end's
+    ``CalibArrays`` holds them: 0-d f32 tensors and a (4,) one."""
+    import torch
+
+    k, d = IMAGE_CAMS[kind]
+    return (*(torch.tensor(v, dtype=torch.float32, device=dev) for v in k),
+            torch.tensor(d, dtype=torch.float32, device=dev))
+
+
+def image_points(W: int, H: int, n: int, seed: int, dev):
+    """``n`` f32 pixels over the (H, W) image and 20 px beyond its edges."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    px = rng.uniform((-20.0, -20.0), (W + 20.0, H + 20.0), (n, 2))
+    return torch.as_tensor(px.astype(np.float32), device=dev)
+
+
+def image_cases(label: str, img, dev, clip: float = 3.0, levels: int = 4,
+                cams: bool = True):
+    """(kernel, name, kernel call, plain call) of every output the three
+    kernels give on ``img``: CLAHE (at ``clip`` and, with ``cams``, at
+    ``IMAGE_ODD_CLIP``), the pyramid of its output, the blur, the box
+    filter and both Scharr gradients (each pass order), and, with
+    ``cams``, the undistortion and both distortion modes of
+    ``IMAGE_POINTS`` pixels through each fixture camera and the image's
+    undistortion map through the radtan one, and ``Camera.undistort_px``
+    (the intrinsics read as views of K)."""
+    import torch
+
+    from ov2slam_torch.core import camera as cm
+    from ov2slam_torch.core import image as im
+
+    from ov2slam_torch.utils.config import CameraConfig
+
+    H, W = img.shape
+    eq = im.clahe(img, clip)
+
+    def plain_filters(fn):
+        def run():
+            with Swap([(im, "separable_filter")],
+                      lambda m, n, o: im.separable_filter_plain):
+                return fn()
+        return run
+
+    sf = "separable_filter"
+    cases = [
+        ("clahe", f"{label} clahe", lambda: im.clahe(img, clip),
+         lambda: im.clahe_plain(img, clip)),
+        (sf, f"{label} pyramid", lambda: im.build_pyramid(eq, levels)[1:],
+         plain_filters(lambda: im.build_pyramid(eq, levels)[1:])),
+        (sf, f"{label} gaussian_blur", lambda: im.gaussian_blur(img, 2.0, 4),
+         plain_filters(lambda: im.gaussian_blur(img, 2.0, 4))),
+        (sf, f"{label} box_filter", lambda: im.box_filter(img, 3),
+         plain_filters(lambda: im.box_filter(img, 3))),
+        (sf, f"{label} scharr", lambda: im.scharr_gradients(img),
+         plain_filters(lambda: im.scharr_gradients(img)))]
+    if not cams:
+        return cases
+    odd = IMAGE_ODD_CLIP
+    cases.append(("clahe", f"{label} clahe clip {odd}",
+                  lambda: im.clahe(img, odd),
+                  lambda: im.clahe_plain(img, odd)))
+    up = "undistort_points"
+    px = image_points(W, H, IMAGE_POINTS, W * H, dev)
+    ys, xs = torch.meshgrid(
+        torch.arange(H, dtype=torch.float32, device=dev),
+        torch.arange(W, dtype=torch.float32, device=dev), indexing="ij")
+    grid = torch.stack([xs, ys], dim=-1)
+    for kind in IMAGE_CAMS:
+        c = image_camera(kind, dev)
+        fe = kind == "fisheye"
+        xn = (px - torch.stack(c[2:4])) / torch.stack(c[0:2])
+        cases += [
+            (up, f"{label} undistort {kind}",
+             lambda c=c, fe=fe: cm.undistort_points(px, *c, fe),
+             lambda c=c, fe=fe: cm.undistort_points_plain(px, *c, fe)),
+            (up, f"{label} distort {kind} pixels",
+             lambda c=c, fe=fe: cm.distort_points(px, *c, fe),
+             lambda c=c, fe=fe: cm.distort_points_plain(px, *c, fe)),
+            (up, f"{label} distort {kind} normalised",
+             lambda c=c, fe=fe, xn=xn: cm.distort_points(xn, *c, fe, True),
+             lambda c=c, fe=fe, xn=xn: cm.distort_points_plain(xn, *c, fe,
+                                                                True))]
+    c = image_camera("radtan", dev)
+    (fx, fy, cx, cy), dist = IMAGE_CAMS["radtan"]
+    cam = cm.build_camera(CameraConfig(
+        model="pinhole", width=W, height=H, fx=fx, fy=fy, cx=cx, cy=cy,
+        dist=dist), device=dev)
+    cases += [
+        (up, f"{label} undistortion map radtan",
+         lambda: cm.distort_points(grid, *c),
+         lambda: cm.distort_points_plain(grid, *c)),
+        (up, f"{label} Camera.undistort_px radtan",
+         lambda: cam.undistort_px(px),
+         lambda: cm.undistort_points_plain(px, *cam._intrinsics(),
+                                           cam.dist))]
+    return cases
+
+
+def _flat(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def image_check(cases, digests, errs):
+    """Runs each case's kernel call twice and its plain call once on the
+    card; fails unless all three agree bit for bit (NaNs where the plain
+    version has them). Adds each case's sha1 (over its outputs' bytes) to
+    ``digests`` and keeps in ``errs``, by kernel, the largest |kernel -
+    plain| over the positions where neither is NaN; returns the number of
+    outputs held."""
+    import hashlib
+
+    import torch
+
+    held = 0
+    for kernel, name, run, plain in cases:
+        k1, k2, ref = _flat(run()), _flat(run()), _flat(plain())
+        torch.cuda.synchronize()
+        h = hashlib.sha1()
+        for a, b, r in zip(k1, k2, ref, strict=True):
+            if a.shape != r.shape or a.dtype != r.dtype:
+                fail(f"image {name}: {tuple(a.shape)} {a.dtype} against "
+                     f"the plain {tuple(r.shape)} {r.dtype}")
+            for other, what in ((r, "the plain version"),
+                                (b, "a second launch")):
+                bits = a.view(torch.int32) != other.view(torch.int32)
+                if bool(bits.any()):
+                    d = (a - other).abs().nan_to_num(float("inf"))
+                    fail(f"image {name}: not bit-equal to {what} "
+                         f"({int(bits.sum())} values differ, largest "
+                         f"{float(d.max()):.3e})")
+            both = ~(a.isnan() | r.isnan())
+            d = torch.where(a == r, 0.0, (a - r).abs())[both]
+            errs[kernel] = max(errs.get(kernel, 0.0),
+                               float(d.max()) if d.numel() else 0.0)
+            h.update(a.contiguous().cpu().numpy().tobytes())
+            held += 1
+        digests[name] = h.hexdigest()[:12]
+    return held
+
+
+def image_launches_per_call(fn):
+    """The image and camera kernels' launches one call of ``fn`` makes
+    (from the wrappers' counters)."""
+    from ov2slam_torch.core import camera, image
+
+    fns = (camera.undistort_points, image.separable_filter, image.clahe)
+    n0 = [f.launches for f in fns]
+    fn()
+    return sum(f.launches - n for f, n in zip(fns, n0))
+
+
+def time_image(label, run, plain, bound, runs: int = 20,
+               plain_runs: int = 3):
+    """One main-path call: median ms (events around one call), device ms
+    (``runs`` calls queued behind a sleep), the wrappers' launches a call
+    (1 expected), its bound and the plain version's median ms."""
+    launches = image_launches_per_call(run)
+    if launches != 1:
+        fail(f"image {label}: {launches} launches a call, not 1")
+    return dict(label=label, ms=time_cuda(run, runs),
+                device_ms=time_cuda_queued(run, runs),
+                launches_per_call=launches,
+                plain_ms=time_cuda(plain, plain_runs), **bound)
+
+
+def phase_image(dev, frames):
+    """The three kernels against their plain versions on the card, bit for
+    bit: at each of ``IMAGE_SIZES`` on a fixture (CLAHE, its pyramid, the
+    blur, box filter and Scharr gradients; the undistortion and distortion
+    of pixels through a radtan and a fisheye camera, the radtan image's
+    undistortion map) and on ``frames`` ({slice: (frame, clip limit)}:
+    slices A's and B's frame ``IMAGE_FRAME`` as the front end uploads it,
+    in uint8, with the config's clip limit); then each kernel timed at
+    slice B's main-path call.
+    Returns the timing rows by kernel, the largest difference by kernel
+    (``image_check``'s) and the digests."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch import roofline
+    from ov2slam_torch.core import camera as cm
+    from ov2slam_torch.core import image as im
+    from ov2slam_torch.models.frontend import to_u8
+
+    t0 = time.perf_counter()
+    digests, errs, held = {}, {}, 0
+    for W, H in IMAGE_SIZES:
+        img = torch.as_tensor(image_fixture(W, H), device=dev)
+        held += image_check(image_cases(f"{W}x{H}", img, dev), digests,
+                            errs)
+    for name, (frame, clip) in frames.items():
+        img = torch.as_tensor(to_u8(frame), device=dev).to(torch.float32)
+        held += image_check(image_cases(f"slice {name} frame {IMAGE_FRAME}",
+                                        img, dev, clip, cams=False),
+                            digests, errs)
+    print(f"[image] {held} outputs bit-equal to the plain versions on the "
+          f"card ({len(digests)} cases; two launches each equal)",
+          flush=True)
+    print("[image] digests " + json.dumps(digests), flush=True)
+
+    frame_b, clip_b = frames["B"]
+    img = torch.as_tensor(to_u8(frame_b), device=dev).to(torch.float32)
+    H, W = img.shape
+    eq = im.clahe(img, clip_b)
+    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+    g = im.gaussian_kernel1d(2.0, 4)
+    px = image_points(W, H, IMAGE_POINTS, 1, dev)
+    c = image_camera("radtan", dev)
+    plain_sf = im.separable_filter_plain
+    rows = dict(
+        undistort_points=[time_image(
+            f"{IMAGE_POINTS} points, radtan, 8 iterations",
+            lambda: cm.undistort_points(px, *c),
+            lambda: cm.undistort_points_plain(px, *c),
+            roofline.undistort_points_bound(IMAGE_POINTS))],
+        separable_filter=[
+            time_image(f"pyramid level {W}x{H} -> {W // 2}x{H // 2}",
+                       lambda: im.pyr_down(eq),
+                       lambda: plain_sf(eq, k, k, stride=2),
+                       roofline.separable_filter_bound(H, W, 5, 5, 2)),
+            time_image(f"9-tap blur {W}x{H} (BRIEF's)",
+                       lambda: im.gaussian_blur(img, 2.0, 4),
+                       lambda: plain_sf(img, g, g),
+                       roofline.separable_filter_bound(H, W, 9, 9, 1))],
+        clahe=[time_image(f"slice B frame {IMAGE_FRAME}, {W}x{H}, clip "
+                          f"{clip_b}", lambda: im.clahe(img, clip_b),
+                          lambda: im.clahe_plain(img, clip_b),
+                          roofline.clahe_bound(H, W))])
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"[image] {name} {r['label']}: {r['ms']:.4f} ms per call, "
+                  f"{r['device_ms']:.5f} ms on the device, plain "
+                  f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
+                  f"({r['bound_by']})", flush=True)
+    print(f"[image] phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, errs, digests
+
+
+# ---------------------------------------------------------------------- #
 # phase entry: the fb-KLT flagship call
 # ---------------------------------------------------------------------- #
 
@@ -4047,6 +4396,7 @@ def phase_bench(dev):
     hamming.match_scores_plain.cuda_runs = 0
     reset_klt_counts()
     reset_pose_counts()
+    reset_image_counts()
     reset_graph_counts()
     detail = {}
     saved = {k: dict(getattr(bench, k)) for k in BENCH_DEPTH}
@@ -4062,6 +4412,7 @@ def phase_bench(dev):
                   + hamming.match_scores_plain.cuda_runs)
     klt = klt_counts()
     pose = pose_counts()
+    image = image_counts()
     graph = graph_counts()
     t_bench = time.perf_counter() - t0
     line, stages = detail["line"], detail["stages"]
@@ -4094,6 +4445,7 @@ def phase_bench(dev):
         fail("bench: the plain scorer ran on cuda")
     gate_klt_launches("bench", klt)
     gate_pose_launches("bench", pose)
+    gate_image_launches("bench", image, False)
     gate_ba_launches("bench", graph, True)
     print("[bench] CUDA-graph steps' calls: " + json.dumps(graph),
           flush=True)
@@ -4143,7 +4495,8 @@ def phase_bench(dev):
           f" bytes; scorer launches {launches}", flush=True)
     return dict(line=line, launches=launches, rows=rows, err=err,
                 seconds=secs, protocol=recs,
-                klt_launches=klt["klt_launches"], pose=pose, graph=graph)
+                klt_launches=klt["klt_launches"], pose=pose, graph=graph,
+                image=image)
 
 
 def main() -> int:
@@ -4174,7 +4527,10 @@ def main() -> int:
     rows, max_err = phase_kernels(dev)
     compaction = time_compaction(dev)
 
-    a, _ = run_slice("A", dev)
+    a, seq_a = run_slice("A", dev)
+    image_frames = {"A": (seq_a.images_left[IMAGE_FRAME],
+                          slice_config("A", seq_a, profiles).clahe_val)}
+    del seq_a
     if a["closures"] < 1:
         fail("slice A: loop never closed")
     if not a["ate_m"] < SLICE_A_MAX_ATE:
@@ -4193,6 +4549,9 @@ def main() -> int:
     pose_rows, pose_err = phase_pose(dev, captured)
     graph_rows = phase_graphs(dev, graph_calls)
     ba = phase_ba(dev, graph_calls)
+    image_frames["B"] = (seq_b.images_left[IMAGE_FRAME],
+                         slice_config("B", seq_b, profiles).clahe_val)
+    image_rows, image_err, _ = phase_image(dev, image_frames)
 
     c, _ = run_slice("C", dev)
     gate_slice_c(c)
@@ -4314,7 +4673,29 @@ def main() -> int:
                                              else ""): r[key]
                                for r in slices},
             bench_launches=bn["graph"][key], paths=ba_paths))
-    kernels_line = {"kernels": [klt_line, *pose_line, *ba_line, dict(
+    # the image and camera kernels: slice B's main-path calls' figures;
+    # launches those of every SLAM slice and of the bench
+    image_line = []
+    for name, key, replaces in (
+            ("undistort_points", "undistort_launches",
+             "ov2slam_tpu/models/frontend_step.py:53"),
+            ("separable_filter", "filter_launches",
+             "ov2slam_tpu/core/image.py:24"),
+            ("clahe", "clahe_launches", "ov2slam_tpu/core/image.py:98")):
+        call = image_rows[name][0]
+        image_line.append(dict(
+            name=name, route="cuda", source=f"ov2slam_torch/csrc/{name}.cu",
+            replaces=replaces,
+            launches=sum(r[key] for r in slices) + bn["image"][key],
+            max_abs_err=image_err[name], library_ms=None,
+            **{k: call[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "label")},
+            launches_by_slice={r["slice"] + (" " + r["part"] if "part" in r
+                                             else ""): r[key]
+                               for r in slices},
+            bench_launches=bn["image"][key], paths=image_rows[name]))
+    kernels_line = {"kernels": [klt_line, *pose_line, *ba_line,
+                                *image_line, dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",

@@ -6,16 +6,25 @@ Supports the two models of the reference:
 
 All projection/undistortion functions are pure and batched over leading
 dims. The camera's parameters are tensors on the camera's device.
+
+The fixed-point undistortion and the distortion of points
+(:func:`undistort_points`, :func:`distort_points`) launch
+``csrc/undistort_points.cu`` on CUDA tensors, one launch a call, and take
+their plain versions (:func:`undistort_points_plain`,
+:func:`distort_points_plain`) on CPU tensors.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..ops import launch
+from ..ops.launch import check, device_of
 from ..utils import lie, lie_np
 from ..utils.config import CameraConfig
 
@@ -55,6 +64,144 @@ def _undistort_iterative(xd, dist, distort_fn, iters: int = 8):
     for _ in range(iters):
         xn = xd - (distort_fn(xn, dist) - xn)
     return xn
+
+
+def _distort_fn(fisheye: bool):
+    return distort_fisheye if fisheye else distort_radtan
+
+
+# --------------------------------------------------------------------------
+# Points through the camera's distortion: plain versions and the kernel
+# --------------------------------------------------------------------------
+
+def undistort_points_plain(px, fx, fy, cx, cy, dist, fisheye: bool = False,
+                           iters: int = 8):
+    """Distorted pixels (..., 2) → undistorted pixels, in plain PyTorch:
+    normalised by the intrinsics (0-d tensors), ``iters`` fixed-point
+    steps of the radtan or fisheye model, and back to pixels."""
+    if px.is_cuda:
+        undistort_points_plain.cuda_runs += 1
+    f, c = torch.stack([fx, fy]), torch.stack([cx, cy])
+    xn = (px - c) / f
+    xu = _undistort_iterative(xn, dist, _distort_fn(fisheye), iters)
+    return xu * f + c
+
+
+def distort_points_plain(x, fx, fy, cx, cy, dist, fisheye: bool = False,
+                         normalized: bool = False):
+    """Undistorted pixels (..., 2) — or normalised coordinates, with
+    ``normalized`` — → distorted pixels, in plain PyTorch."""
+    if x.is_cuda:
+        distort_points_plain.cuda_runs += 1
+    f, c = torch.stack([fx, fy]), torch.stack([cx, cy])
+    xn = x if normalized else (x - c) / f
+    return _distort_fn(fisheye)(xn, dist) * f + c
+
+
+# calls on CUDA tensors (the card runs the kernel instead)
+undistort_points_plain.cuda_runs = 0
+distort_points_plain.cuda_runs = 0
+
+# the kernel's modes
+MODE_UNDISTORT, MODE_DISTORT_PX, MODE_DISTORT_NORMALIZED = 0, 1, 2
+
+
+class PointsLaunch(NamedTuple):
+    """The arguments of ``undistort_points_launch`` but the output and the
+    stream."""
+    pts: int
+    n: int
+    stride: int
+    fx: int
+    fy: int
+    cx: int
+    cy: int
+    dist: int
+    mode: int
+    fisheye: int
+    iters: int
+
+
+def pack_points(x, fx, fy, cx, cy, dist, fisheye: bool, mode: int,
+                iters: int = 8) -> PointsLaunch:
+    """Checks a launch of ``csrc/undistort_points.cu`` and packs its
+    arguments; raises on what the kernel does not take: TypeError on a
+    dtype (f32 only), ValueError on another device, points that are not
+    rows of 2 adjacent values (a 2-D view may have any row stride, more
+    dimensions must be contiguous), intrinsics that are not one element,
+    coefficients that are not 4 contiguous values, or a mode or iteration
+    count it does not run."""
+    fn = "undistort_points"
+    dev = device_of(x, fn)
+    if x.dim() < 1 or x.shape[-1] != 2:
+        raise ValueError(f"{fn}: points must be (..., 2), not "
+                         f"{tuple(x.shape)}")
+    if x.dim() != 2:
+        check(fn, "points", x, torch.float32, dev)
+        x = x.reshape(-1, 2)
+    stride = check(fn, "points", x, torch.float32, dev, rows=True)
+    ptrs = []
+    for name, t in (("fx", fx), ("fy", fy), ("cx", cx), ("cy", cy)):
+        check(fn, name, t, torch.float32, dev)
+        if t.numel() != 1:
+            raise ValueError(f"{fn}: {name} must have one element")
+        ptrs.append(t.data_ptr())
+    check(fn, "dist", dist, torch.float32, dev, shape=(4,))
+    if mode not in (MODE_UNDISTORT, MODE_DISTORT_PX,
+                    MODE_DISTORT_NORMALIZED):
+        raise ValueError(f"{fn}: mode {mode}")
+    if not isinstance(iters, int) or iters < 0:
+        raise ValueError(f"{fn}: iters {iters}")
+    return PointsLaunch(x.data_ptr(), x.shape[0], stride, *ptrs,
+                        dist.data_ptr(), mode, int(bool(fisheye)), iters)
+
+
+def launch_points(x, fx, fy, cx, cy, dist, fisheye: bool, mode: int,
+                  iters: int = 8):
+    """One launch of ``csrc/undistort_points.cu`` on CUDA tensors, on the
+    current stream of their device; returns the pixels (..., 2). No
+    points launch nothing."""
+    a = pack_points(x, fx, fy, cx, cy, dist, fisheye, mode, iters)
+    out = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    if a.n > 0:
+        launch.run("undistort_points", (*a, out.data_ptr()),
+                    undistort_points, (mode, a.n), x.device)
+    return out
+
+
+def undistort_points(px, fx, fy, cx, cy, dist, fisheye: bool = False,
+                     iters: int = 8):
+    """Distorted pixels (..., 2) → undistorted pixels (see
+    :func:`undistort_points_plain`). CPU tensors take the plain version;
+    CUDA tensors one kernel launch, which reads the intrinsics (one-element
+    f32 tensors) and the coefficients on the device."""
+    if device_of(px, "undistort_points").type == "cpu":
+        return undistort_points_plain(px, fx, fy, cx, cy, dist, fisheye,
+                                      iters)
+    return launch_points(px, fx, fy, cx, cy, dist, fisheye, MODE_UNDISTORT,
+                         iters)
+
+
+def distort_points(x, fx, fy, cx, cy, dist, fisheye: bool = False,
+                   normalized: bool = False):
+    """Undistorted pixels (or normalised coordinates) (..., 2) → distorted
+    pixels (see :func:`distort_points_plain`). CPU tensors take the plain
+    version; CUDA tensors one launch of the undistortion kernel in its
+    distortion mode."""
+    if device_of(x, "distort_points").type == "cpu":
+        return distort_points_plain(x, fx, fy, cx, cy, dist, fisheye,
+                                    normalized)
+    return launch_points(x, fx, fy, cx, cy, dist, fisheye,
+                         MODE_DISTORT_NORMALIZED if normalized
+                         else MODE_DISTORT_PX)
+
+
+# launches of the kernel (by undistort_points and distort_points; a launch
+# inside a CUDA graph counts on each replay), how many at each (mode, N),
+# and how many from each (thread name, CUDA stream handle)
+undistort_points.launches = 0
+undistort_points.shapes = collections.Counter()
+undistort_points.origins = collections.Counter()
 
 
 # --------------------------------------------------------------------------
@@ -114,8 +261,13 @@ class Camera:
     def _c(self):
         return torch.stack([self.cx, self.cy])
 
-    def _distort_fn(self):
-        return distort_fisheye if self.model == "fisheye" else distort_radtan
+    @property
+    def fisheye(self) -> bool:
+        return self.model == "fisheye"
+
+    def _intrinsics(self):
+        """(fx, fy, cx, cy) as 0-d views of ``K`` (read on the device)."""
+        return self.fx, self.fy, self.cx, self.cy
 
     # -- projections ----------------------------------------------------- #
 
@@ -131,14 +283,13 @@ class Camera:
         z = pts_cam[..., 2:3]
         xn = pts_cam[..., 0:2] / torch.where(z.abs() < 1e-9,
                                              torch.full_like(z, 1e-9), z)
-        xd = self._distort_fn()(xn, self.dist)
-        return xd * self._f() + self._c()
+        return distort_points(xn, *self._intrinsics(), self.dist,
+                              self.fisheye, normalized=True)
 
     def undistort_px(self, px):
         """Distorted pixels (..., 2) → undistorted pixels."""
-        xn = (px - self._c()) / self._f()
-        xu = _undistort_iterative(xn, self.dist, self._distort_fn())
-        return xu * self._f() + self._c()
+        return undistort_points(px, *self._intrinsics(), self.dist,
+                                self.fisheye)
 
     def bearing(self, px_undist):
         """Undistorted pixels → unit bearing vectors (..., 3)."""
@@ -200,9 +351,7 @@ def compute_undist_map(cam: Camera) -> torch.Tensor:
         indexing="ij",
     )
     px = torch.stack([xs, ys], dim=-1)
-    xn = (px - cam._c()) / cam._f()
-    xd = cam._distort_fn()(xn, cam.dist)
-    return xd * cam._f() + cam._c()
+    return distort_points(px, *cam._intrinsics(), cam.dist, cam.fisheye)
 
 
 # --------------------------------------------------------------------------
@@ -294,5 +443,5 @@ def compute_rectify_map(cam: Camera, R_rect: np.ndarray,
     Rinv = torch.as_tensor(np.asarray(R_rect), dtype=dtype, device=dev).T
     v = xn @ Rinv.T
     xn_raw = v[..., 0:2] / v[..., 2:3]
-    xd = cam._distort_fn()(xn_raw, cam.dist)
-    return xd * cam._f() + cam._c()
+    return distort_points(xn_raw, *cam._intrinsics(), cam.dist, cam.fisheye,
+                          normalized=True)

@@ -6,15 +6,26 @@ preprocessing: CLAHE + buildOpticalFlowPyramid). Images are f32 in
 shift-add form, tap by tap, so the port sums in the same order; CLAHE
 counts its tile histograms with ``scatter_add`` instead of the TPU's
 comparison-reduce (the counts are exact integers either way).
+
+On CUDA tensors the filters (:func:`separable_filter`, and with it the
+blur, box filter, Scharr gradients and pyramid) launch
+``csrc/separable_filter.cu``, one launch a filtered image, and
+:func:`clahe` launches ``csrc/clahe.cu``; CPU tensors take the plain
+versions (:func:`separable_filter_plain`, :func:`clahe_plain`).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import collections
+import ctypes
+from typing import List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..ops import launch
+from ..ops.launch import check, device_of
 
 
 def _filter_x(img, taps) -> torch.Tensor:
@@ -40,8 +51,98 @@ def _filter_y(img, taps) -> torch.Tensor:
     return out
 
 
-def separable_filter(img, taps_y, taps_x):
-    return _filter_x(_filter_y(img, taps_y), taps_x)
+def separable_filter_plain(img, taps_y, taps_x, x_first: bool = False,
+                           stride: int = 1):
+    """The separable filter in plain PyTorch: the pass along y, then along
+    x (along x first with ``x_first``), then every ``stride``-th row and
+    column."""
+    if img.is_cuda:
+        separable_filter_plain.cuda_runs += 1
+    if x_first:
+        out = _filter_y(_filter_x(img, taps_x), taps_y)
+    else:
+        out = _filter_x(_filter_y(img, taps_y), taps_x)
+    return out if stride == 1 else out[::stride, ::stride].contiguous()
+
+
+# calls on CUDA tensors (the card runs the kernel instead)
+separable_filter_plain.cuda_runs = 0
+
+MAX_TAPS = 9      # csrc/separable_filter.cu's kMaxTaps (offsets within ±4)
+
+
+class FilterLaunch(NamedTuple):
+    """The arguments of ``separable_filter_launch`` but the output and the
+    stream (the taps as ctypes arrays the call reads on the host)."""
+    img: int
+    H: int
+    W: int
+    stride: int
+    x_first: int
+    ny: int
+    offy: ctypes.Array
+    wy: ctypes.Array
+    nx: int
+    offx: ctypes.Array
+    wx: ctypes.Array
+
+
+def _taps(fn: str, name: str, taps):
+    """The non-zero taps in order, as the plain version takes them: (count,
+    offsets, f32 weights)."""
+    taps = [float(t) for t in taps]
+    if not 1 <= len(taps) <= MAX_TAPS:
+        raise ValueError(f"{fn}: {name} has {len(taps)} taps, the kernel "
+                         f"takes 1 to {MAX_TAPS}")
+    r = len(taps) // 2
+    kept = [(i - r, t) for i, t in enumerate(taps) if t != 0.0]
+    off = (ctypes.c_int * MAX_TAPS)(*[o for o, _ in kept])
+    w = (ctypes.c_float * MAX_TAPS)(*[t for _, t in kept])
+    return len(kept), off, w
+
+
+def pack_filter(img, taps_y, taps_x, x_first: bool = False,
+                stride: int = 1) -> FilterLaunch:
+    """Checks a launch of ``csrc/separable_filter.cu`` and packs its
+    arguments; raises on what the kernel does not take: TypeError on a
+    dtype (f32 only), ValueError on an image that is not (H, W) and
+    contiguous, more than 9 taps a pass, or a stride other than 1 or 2."""
+    fn = "separable_filter"
+    dev = device_of(img, fn)
+    check(fn, "img", img, torch.float32, dev)
+    if img.dim() != 2 or img.numel() == 0:
+        raise ValueError(f"{fn}: img must be (H, W), not "
+                         f"{tuple(img.shape)}")
+    if stride not in (1, 2):
+        raise ValueError(f"{fn}: stride {stride}; the kernel takes 1 or 2")
+    ny, offy, wy = _taps(fn, "taps_y", taps_y)
+    nx, offx, wx = _taps(fn, "taps_x", taps_x)
+    H, W = img.shape
+    return FilterLaunch(img.data_ptr(), H, W, stride, int(bool(x_first)),
+                        ny, offy, wy, nx, offx, wx)
+
+
+def separable_filter(img, taps_y, taps_x, x_first: bool = False,
+                     stride: int = 1):
+    """Separable FIR over an edge-replicated image (see
+    :func:`separable_filter_plain`). CPU tensors take the plain version;
+    CUDA tensors one kernel launch."""
+    if device_of(img, "separable_filter").type == "cpu":
+        return separable_filter_plain(img, taps_y, taps_x, x_first, stride)
+    a = pack_filter(img, taps_y, taps_x, x_first, stride)
+    out = torch.empty((-(-a.H // stride), -(-a.W // stride)),
+                      dtype=torch.float32, device=img.device)
+    launch.run("separable_filter", (*a, out.data_ptr()), separable_filter,
+               (a.H, a.W, stride), img.device)
+    return out
+
+
+# launches of the kernel (a launch inside a CUDA graph counts on each
+# replay), how many at each (H, W, stride), and how many from each
+# (thread name, CUDA stream handle)
+separable_filter.launches = 0
+separable_filter.shapes = collections.Counter()
+separable_filter.origins = collections.Counter()
 
 
 def gaussian_kernel1d(sigma: float, radius: int) -> np.ndarray:
@@ -66,15 +167,15 @@ def scharr_gradients(img):
     units stay in intensity-per-pixel). Separable: [3,10,3]/16 ⊗ [-1,0,1]/2."""
     smooth = [3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0]
     diff = [-0.5, 0.0, 0.5]
-    gx = _filter_x(_filter_y(img, smooth), diff)
-    gy = _filter_y(_filter_x(img, smooth), diff)
+    gx = separable_filter(img, smooth, diff)
+    gy = separable_filter(img, diff, smooth, x_first=True)
     return gx, gy
 
 
 def pyr_down(img):
     """Gaussian 5-tap blur + 2x decimation (cv::pyrDown equivalent)."""
     k = (np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0)
-    return separable_filter(img, k, k)[::2, ::2].contiguous()
+    return separable_filter(img, k, k, stride=2)
 
 
 def build_pyramid(img, levels: int) -> List[torch.Tensor]:
@@ -89,13 +190,15 @@ def build_pyramid(img, levels: int) -> List[torch.Tensor]:
 # CLAHE
 # --------------------------------------------------------------------------
 
-def clahe(img, clip_limit: float = 3.0, tiles: Tuple[int, int] = (8, 8),
-          nbins: int = 256):
+def clahe_plain(img, clip_limit: float = 3.0,
+                tiles: Tuple[int, int] = (8, 8), nbins: int = 256):
     """Contrast-limited adaptive histogram equalization
-    (cv::createCLAHE(clip, (8,8)) semantics): per-tile clipped histograms
-    → CDF LUTs → bilinear LUT interpolation. Input f32 in [0, 255]; output
-    same range.
+    (cv::createCLAHE(clip, (8,8)) semantics) in plain PyTorch: per-tile
+    clipped histograms → CDF LUTs → bilinear LUT interpolation. Input f32
+    in [0, 255]; output same range.
     """
+    if img.is_cuda:
+        clahe_plain.cuda_runs += 1
     H, W = img.shape
     ty, tx = tiles
     th, tw = -(-H // ty), -(-W // tx)  # ceil tile size
@@ -139,3 +242,88 @@ def clahe(img, clip_limit: float = 3.0, tiles: Tuple[int, int] = (8, 8),
     v11 = luts[y1, x1, b]
     return (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx
             + v10 * wy * (1 - wx) + v11 * wy * wx)
+
+
+# calls on CUDA tensors (the card runs the kernels instead)
+clahe_plain.cuda_runs = 0
+
+MAX_BINS = 1024   # csrc/clahe.cu's kMaxBins
+
+
+def scan_log_threads(num_rows: int, row_size: int) -> int:
+    """log2 of the threads a row that ``torch.cumsum`` over the last
+    dimension takes on the card: ATen's
+    ``get_log_num_threads_x_inner_scan`` (ATen/native/cuda/ScanUtils.cuh),
+    in its uint32 arithmetic."""
+    lx = max(row_size - 1, 0).bit_length()
+    ly = max(num_rows - 1, 0).bit_length()
+    lx = ((9 + lx - ly) & 0xFFFFFFFF) // 2
+    return min(max(4, lx), 9)
+
+
+class ClaheLaunch(NamedTuple):
+    """The arguments of ``clahe_launch`` but the LUT scratch, the output
+    and the stream."""
+    img: int
+    H: int
+    W: int
+    ty: int
+    tx: int
+    nbins: int
+    limit: float
+    log_x: int
+
+
+def pack_clahe(img, clip_limit: float = 3.0,
+               tiles: Tuple[int, int] = (8, 8),
+               nbins: int = 256) -> ClaheLaunch:
+    """Checks a launch of ``csrc/clahe.cu`` and packs its arguments; raises
+    on what the kernels do not take: TypeError on a dtype (f32 only) or a
+    clip limit that is a tensor, ValueError on an image that is not (H, W)
+    and contiguous, fewer than 16 tiles, or bins that are not a multiple of
+    4 from 128 to 1024 (the shapes whose excess ``torch.sum`` adds in the
+    order the kernel follows)."""
+    fn = "clahe"
+    dev = device_of(img, fn)
+    check(fn, "img", img, torch.float32, dev)
+    if img.dim() != 2 or img.numel() == 0:
+        raise ValueError(f"{fn}: img must be (H, W), not "
+                         f"{tuple(img.shape)}")
+    if isinstance(clip_limit, torch.Tensor):
+        raise TypeError(f"{fn}: clip_limit must be a Python number")
+    ty, tx = (int(t) for t in tiles)
+    if (ty < 1 or tx < 1 or ty * tx < 16 or nbins % 4
+            or not 128 <= nbins <= MAX_BINS):
+        raise ValueError(f"{fn}: tiles {tiles}, nbins {nbins}")
+    H, W = img.shape
+    th, tw = -(-H // ty), -(-W // tx)
+    # the plain version's limit, a Python float the card rounds to f32
+    limit = max(clip_limit * (th * tw) / nbins, 1.0)
+    return ClaheLaunch(img.data_ptr(), H, W, ty, tx, nbins,
+                       float(np.float32(limit)),
+                       scan_log_threads(ty * tx, nbins))
+
+
+def clahe(img, clip_limit: float = 3.0, tiles: Tuple[int, int] = (8, 8),
+          nbins: int = 256):
+    """CLAHE (see :func:`clahe_plain`). CPU tensors take the plain version;
+    CUDA tensors one launch of ``csrc/clahe.cu`` (two kernels: the tiles'
+    LUTs, then the blend)."""
+    if device_of(img, "clahe").type == "cpu":
+        return clahe_plain(img, clip_limit, tiles, nbins)
+    a = pack_clahe(img, clip_limit, tiles, nbins)
+    dev = img.device
+    lut = torch.empty((a.ty * a.tx, a.nbins), dtype=torch.float32,
+                      device=dev)
+    out = torch.empty((a.H, a.W), dtype=torch.float32, device=dev)
+    launch.run("clahe", (*a, lut.data_ptr(), out.data_ptr()), clahe,
+               (a.H, a.W), dev)
+    return out
+
+
+# launches of the library (two kernels each; a launch inside a CUDA graph
+# counts on each replay), how many at each (H, W), and how many from each
+# (thread name, CUDA stream handle)
+clahe.launches = 0
+clahe.shapes = collections.Counter()
+clahe.origins = collections.Counter()

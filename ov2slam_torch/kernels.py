@@ -64,6 +64,20 @@ _SIGNATURES = {
                      [_C.c_void_p, _C.c_void_p]),
     "ba_schur_step": ("ba_schur_step_launch", _C.c_int,
                       [_C.c_void_p, _C.c_void_p]),
+    "undistort_points": ("undistort_points_launch", _C.c_int,
+                         [_C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,
+                          _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                          _C.c_void_p, _C.c_void_p]),
+    "separable_filter": ("separable_filter_launch", _C.c_int,
+                         [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                          _C.c_int, _C.c_int, _C.c_void_p, _C.c_void_p,
+                          _C.c_int, _C.c_void_p, _C.c_void_p, _C.c_void_p,
+                          _C.c_void_p]),
+    "clahe": ("clahe_launch", _C.c_int,
+              [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+               _C.c_int, _C.c_float, _C.c_int, _C.c_void_p, _C.c_void_p,
+               _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
 

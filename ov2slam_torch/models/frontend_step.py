@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.camera import distort_fisheye, distort_radtan
+from ..core.camera import distort_points, undistort_points
 from ..core.image import build_pyramid, clahe
 from ..geometry.essential import essential_ransac
 from ..graphs import GraphedStep
@@ -48,14 +48,15 @@ class CalibArrays(NamedTuple):
     def c(self):
         return torch.stack([self.cx, self.cy])
 
+    def intrinsics(self):
+        return self.fx, self.fy, self.cx, self.cy
+
 
 def _undistort_px(px, calib: CalibArrays, fisheye: bool, iters: int = 8):
-    xn = (px - calib.c()) / calib.f()
-    fn = distort_fisheye if fisheye else distort_radtan
-    xu = xn
-    for _ in range(iters):
-        xu = xn - (fn(xu, calib.dist) - xu)
-    return xu * calib.f() + calib.c()
+    """Distorted → undistorted pixels (one launch of the undistortion
+    kernel on CUDA; the calibration is read on the device)."""
+    return undistort_points(px, *calib.intrinsics(), calib.dist, fisheye,
+                            iters)
 
 
 # state-row flag bits (column 7 of the packed per-frame state, column 5 of
@@ -207,8 +208,8 @@ def fused_track_step(
     # --- forward-backward KLT ------------------------------------------ #
     fb = torch.zeros(px.shape[0], dtype=px.dtype, device=dev)
     if track_from_kf and do_pose:
-        dist_fn = distort_fisheye if fisheye else distort_radtan
-        kf_raw = dist_fn((kf_px_und - cxy) / fxy, calib.dist) * fxy + cxy
+        kf_raw = distort_points(kf_px_und, *calib.intrinsics(), calib.dist,
+                                fisheye)
         src = torch.where(kf_pair_valid[:, None], kf_raw, px)
         fwd, status = fb_klt_track_split(
             kf_pyr, cur_pyr, src, torch.where(proj_ok[:, None], proj, px),

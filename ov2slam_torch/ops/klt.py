@@ -32,8 +32,7 @@ from typing import Sequence
 
 import torch
 
-from .. import graphs, kernels
-from .launch import check, device_of
+from .launch import check, device_of, run
 from .patch import extract_patches, sample_window
 
 # what csrc/klt_track.cu is sized for
@@ -290,17 +289,10 @@ def launch(pyr_prev, pyr_cur, kps, priors, valid, back_levels: int = 0,
                          "keypoints' device")
     if a.n == 0:
         return xy, status, residual
-    lib = kernels.load("klt_track")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.klt_track_launch(
-            *a.c_args(), xy.data_ptr(), status.data_ptr(),
-            residual.data_ptr(), steps.data_ptr() if steps is not None
-            else None, stream)
-    if rc != 0:
-        raise RuntimeError(f"klt_track launch failed: code {rc}")
-    graphs.count_launch(klt_track, (a.n, a.levels, back_levels > 0),
-                        stream)
+    run("klt_track", (*a.c_args(), xy.data_ptr(), status.data_ptr(),
+                      residual.data_ptr(), steps.data_ptr()
+                      if steps is not None else None),
+        klt_track, (a.n, a.levels, back_levels > 0), dev)
     return xy, status, residual
 
 

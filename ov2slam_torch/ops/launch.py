@@ -1,6 +1,8 @@
 """Argument checks shared by the wrappers of the hand-written kernels that
 take tensors of any layout (``ops/klt.py``, ``geometry/essential.py``,
-``solvers/pnp_refine.py``).
+``solvers/pnp_refine.py``, ``core/camera.py``, ``core/image.py``), and the
+launch call that counts on :func:`graphs.count_launch` (:func:`run`: the
+KLT, local BA's two libraries and the image and camera kernels).
 
 A wrapper takes CPU tensors to its plain version and launches its kernel
 on CUDA tensors; before a launch it checks every input here and raises on
@@ -15,6 +17,8 @@ from __future__ import annotations
 import numbers
 
 import torch
+
+from .. import graphs, kernels
 
 
 def device_of(t: torch.Tensor, fn: str) -> torch.device:
@@ -73,3 +77,17 @@ def number(fn: str, name: str, x) -> float:
     if isinstance(x, torch.Tensor) or not isinstance(x, numbers.Real):
         raise TypeError(f"{fn}: {name} must be a Python number")
     return float(x)
+
+
+def run(lib: str, args, wrapper, key, dev) -> None:
+    """Calls kernel library ``lib``'s launch function with ``args`` and the
+    current stream of ``dev``; raises if it returns an error code, and
+    counts one launch on ``wrapper`` at ``key`` (:func:`graphs.count_launch`:
+    inside a capture, at each replay)."""
+    fn_name = kernels._SIGNATURES[lib][0]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(kernels.load(lib), fn_name)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{lib} launch failed: code {rc}")
+    graphs.count_launch(wrapper, key, stream)

@@ -56,6 +56,16 @@ def reduction_bytes(Kw: int) -> int:
     return 8 * (Kw * 36 + Kw * 6 + Kw * Kw * 36 + Kw * 6 + 2)
 
 
+def _bound(ops, nbytes):
+    """A bound's record: its f32 operations and bytes, and the larger of
+    their times at ``F32_FLOP_PER_S`` and ``HBM_BYTES_PER_S`` as bound_ms,
+    with bound_by the one that sets it."""
+    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(ops=int(ops), bytes=int(nbytes),
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
 # the dependent chain of one keypoint in csrc/klt_track.cu, in SM cycles:
 # one Gauss-Newton step (the steps of a keypoint are sequential), and the
 # per-level setup that a level which steps adds before its first step,
@@ -122,10 +132,7 @@ def fb_klt_bound(kps, shapes, win: int = 9, iters: int = 30,
     nbytes = 4 * px + n * (8 + 8 + 1) + n * (8 + 1)
     ops = (n * passes * (T * T * 8 + win * win * 10)
            + n_steps * (win * win * 13 + 12))
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=ops, bytes=nbytes, pixels_read=px, steps=n_steps,
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+    return dict(**_bound(ops, nbytes), pixels_read=px, steps=n_steps,
                 chain_estimate_ms=1e3 * (passes * KLT_SETUP_CYCLES
                                          + most * KLT_CHAIN_CYCLES)
                 / SM_CLOCK_HZ)
@@ -191,10 +198,7 @@ def essential_ransac_bound(n: int, n5: int, n8: int, roots: int,
            + n8 * RANSAC_EIGHT_OPS + (scored + 1) * n * SAMPSON_OPS
            + (10 * n5 + n8))
     nbytes = n * 17 + 8 * (5 * n5 + 8 * n8) + 4 * 512 + 36 + n + 8
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=int(ops), bytes=int(nbytes),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops, nbytes)
 
 
 # f32 operations of csrc/pnp_refine.cu per row and pass (the point
@@ -218,10 +222,7 @@ def pnp_refine_bound(n: int, iters: int):
     ops = ((iters + 1) * n * PNP_ROW_OPS + n * PNP_GATE_OPS
            + iters * PNP_SOLVE_OPS)
     nbytes = 28 + n * (12 + 8 + 1) + 28 + n + 4
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=int(ops), bytes=int(nbytes),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops, nbytes)
 
 
 # f32 operations of csrc/ba_normal_eq.cu per observation row: the landmark
@@ -262,10 +263,7 @@ def ba_normal_eq_bound(Kw: int, Lw: int, O: int, cost: bool = False):
         ops = O * (BA_ROW_OPS + BA_SUM_OPS)
         nbytes = (state + 4 * Kw + rows + cal + 144 * Kw * Kw + 24 * Kw
                   + 24 * Lw * Kw + 8 * Lw + 4)
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=int(ops), bytes=int(nbytes),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops, nbytes)
 
 
 def ba_schur_step_bound(Kw: int, Lw: int):
@@ -284,10 +282,7 @@ def ba_schur_step_bound(Kw: int, Lw: int):
     nbytes = (4 * Kw * Kw * 36 + 4 * n + 4 * Lw * n + 8 * Lw + 4 + 4 * Kw
               + 28 * Kw + 4 * Lw + 4 * n
               + 4 * n * n + 4 * Lw * n + 4 * Lw + 4 * n + 28 * Kw + 4 * Lw)
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=int(ops), bytes=int(nbytes),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops, nbytes)
 
 
 # one f32 addition waiting on the one before it (the FADD latency, SM
@@ -324,7 +319,59 @@ def lu_solve_bound(n: int):
     bytes, bound_ms, bound_by."""
     ops = 2 * n ** 3 // 3 + 2 * n * n
     nbytes = 4 * n * n + 4 * n + 4 * n
-    t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(ops=int(ops), bytes=int(nbytes),
-                bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return _bound(ops, nbytes)
+
+
+# f32 operations of one radtan distortion in csrc/undistort_points.cu, a
+# torch operation of the plain version each (r^2 3, the radial factor 5,
+# 2 p1 and 2 p2, x_d 9, y_d 9), and the fixed-point steps the front end
+# runs (`_undistort_px`'s default in models/frontend_step.py)
+RADTAN_OPS = 3 + 5 + 2 + 9 + 9
+UNDIST_ITERS = 8
+
+
+def undistort_points_bound(n: int):
+    """The least time of one ``undistort_points`` launch on ``n`` points
+    with radtan distortion: its f32 operations (the normalisation, 2 a
+    coordinate; ``UNDIST_ITERS`` fixed-point steps, each a distortion and
+    two subtractions a coordinate; the way back to pixels, 2 a
+    coordinate); bytes of the points read once, the pixels written once
+    and the calibration (8 floats) read once. Returns ops, bytes,
+    bound_ms, bound_by."""
+    return _bound(n * (4 + UNDIST_ITERS * (RADTAN_OPS + 4) + 4),
+                  16 * n + 32)
+
+
+def separable_filter_bound(H: int, W: int, ny: int, nx: int, stride: int):
+    """The least time of one ``separable_filter`` launch, y first, on an
+    (H, W) f32 image with ``ny`` and ``nx`` non-zero taps at ``stride``: a
+    product and a sum a tap at the first pass's pixels the output needs
+    (the kept rows, every column) and at the output's; bytes of the image
+    read once and the output written once. Returns ops, bytes, bound_ms,
+    bound_by."""
+    Ho, Wo = -(-H // stride), -(-W // stride)
+    return _bound(2 * (ny * Ho * W + nx * Ho * Wo), 4 * (H * W + Ho * Wo))
+
+
+# f32 operations of csrc/clahe.cu: a pixel of the padded tiles' histogram
+# (the cast, the clamp, the count); a bin's clip, excess, spread, scan sum
+# and LUT entry (the excess 3, the clipped count 2, the scan 1, the LUT 3);
+# an output pixel's blend (its tile coordinates 3 each, floor, clamps and
+# weights 5 each, the LUT index 2, the four weighted values 8, 3 sums);
+# at the front end's 8x8 tiles of 256 bins
+CLAHE_HIST_OPS = 3
+CLAHE_BIN_OPS = 3 + 2 + 1 + 3
+CLAHE_PIXEL_OPS = 2 * 3 + 2 * 5 + 2 + 2 + 8 + 3
+CLAHE_TILES, CLAHE_BINS = 8, 256
+
+
+def clahe_bound(H: int, W: int):
+    """The least time of one ``clahe`` call (both kernels) on an (H, W) f32
+    image: the operations above; bytes of the image read once and the
+    output written once (the tiles' LUTs are the call's own scratch).
+    Returns ops, bytes, bound_ms, bound_by."""
+    t = CLAHE_TILES
+    padded = t * -(-H // t) * t * -(-W // t)
+    ops = (padded * CLAHE_HIST_OPS + t * t * CLAHE_BINS * CLAHE_BIN_OPS
+           + H * W * CLAHE_PIXEL_OPS)
+    return _bound(ops, 8 * H * W)

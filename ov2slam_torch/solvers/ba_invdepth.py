@@ -45,7 +45,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import graphs, kernels
+from .. import graphs
 from ..graphs import Capture
 from ..ops import launch as _chk
 from ..utils import lie, lie_np
@@ -504,8 +504,8 @@ def normal_equations(T_cw, rho, anchor, lm_ray, obs_kf, obs_lm, obs_px,
         for name, t in zip(("rows", "Hpp", "bp", "Z", "Hrr", "brho",
                             "cost"), (rows,) + out):
             setattr(a, name, t.data_ptr())
-        _launch("ba_normal_eq", a, normal_equations,
-                ("normal", Kw, Lw, O, robust_th > 0), T_cw.device)
+        _chk.run("ba_normal_eq", (ctypes.addressof(a),), normal_equations,
+                 ("normal", Kw, Lw, O, robust_th > 0), T_cw.device)
         return out
 
 
@@ -536,7 +536,8 @@ def schur_step(T_cw, rho, lam, Hpp, bp, Z, Hrr, brho, free):
         a.T_new, a.rho_new, a.dx = (t.data_ptr() for t in (T_new, rho_new,
                                                            dx))
         a.mode = SCHUR_UPDATE
-        _launch("ba_schur_step", a, schur_step, ("update", Kw, Lw), dev)
+        _chk.run("ba_schur_step", (ctypes.addressof(a),), schur_step,
+                 ("update", Kw, Lw), dev)
     return T_new, rho_new
 
 
@@ -550,8 +551,8 @@ def schur_prepare(a, T_cw):
         S, Zn, Hrr_d, b = new((n, n)), new((Lw, Kw, 6)), new(Lw), new((n, 1))
         a.S, a.Zn, a.Hrr_d, a.b = (t.data_ptr() for t in (S, Zn, Hrr_d, b))
         a.mode = SCHUR_PREPARE
-        _launch("ba_schur_step", a, schur_step, ("prepare", Kw, Lw),
-                T_cw.device)
+        _chk.run("ba_schur_step", (ctypes.addressof(a),), schur_step,
+                 ("prepare", Kw, Lw), T_cw.device)
     return S, Zn, Hrr_d, b
 
 
@@ -576,8 +577,8 @@ def lm_accept(T_cw, rho, lam, cost0, T_new, rho_new, anchor, lm_ray,
         for name, t in zip(("rows", "T_out", "rho_out", "lam_out", "cost"),
                            (rows,) + out):
             setattr(a, name, t.data_ptr())
-        _launch("ba_normal_eq", a, lm_accept,
-                ("cost", Kw, Lw, O, robust_th > 0), T_cw.device)
+        _chk.run("ba_normal_eq", (ctypes.addressof(a),), lm_accept,
+                 ("cost", Kw, Lw, O, robust_th > 0), T_cw.device)
         return out
 
 
@@ -727,19 +728,6 @@ def pack_schur_step(T_cw, rho, lam, Hpp, bp, Z, Hrr, brho, free):
         setattr(a, name, t.data_ptr())
     a.Kw, a.Lw = Kw, Lw
     return a
-
-
-def _launch(lib_name, args, fn, key, dev):
-    """One launch call of a kernel library on the current stream of
-    ``dev``, counted on ``fn`` (:func:`graphs.count_launch`)."""
-    lib = kernels.load(lib_name)
-    launch_fn = getattr(lib, kernels._SIGNATURES[lib_name][0])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = launch_fn(ctypes.addressof(args), stream)
-    if rc != 0:
-        raise RuntimeError(f"{lib_name} launch failed: code {rc}")
-    graphs.count_launch(fn, key, stream)
 
 
 def _prepare(kf_poses_wc, kf_fixed, lm_rho, lm_anchor, lm_ray, obs_kf,

@@ -1,0 +1,438 @@
+"""The front end's image and camera kernels (``csrc/undistort_points.cu``,
+``csrc/separable_filter.cu``, ``csrc/clahe.cu``), their wrappers and plain
+versions (``core/camera.py``: ``undistort_points``, ``distort_points``;
+``core/image.py``: ``separable_filter`` and the filters built on it,
+``clahe``; each with its ``_plain`` form).
+
+On the CPU, on images and points made from a numpy seed at 376x240 and at
+an odd 377x241 (ragged CLAHE tiles, odd pyramid levels):
+- the plain versions compute what the code they replaced computed, bit
+  for bit: the front end's fixed-point undistortion and distortion, and
+  the pyramid level at stride 2 against the filter, then every other row
+  and column; the callers that route through the wrappers
+  (``_undistort_px``, ``Camera.undistort_px``,
+  ``project_cam_to_image_dist``) get the plain versions' outputs on the
+  CPU;
+- the plain versions agree with the JAX package's functions within
+  tests/test_torch_image_camera.py's tolerances (f32 on both sides: the
+  filters and the pyramid 1e-4 of 255, CLAHE 1e-3, points 1e-3 px): the
+  pyramid, the blur, the box filter, Scharr's gradients (each pass
+  order), a filter run along x first, CLAHE, and the undistortion and
+  both distortion modes through a radtan and a fisheye camera;
+- the launch packing: the taps the kernel gets (non-zero ones, in order,
+  with their offsets), the clip limit in f32, the scan's threads a row as
+  ATen computes them; and its refusals: more than 9 taps, a stride other
+  than 1 or 2, an image that is not contiguous or not f32, CLAHE shapes
+  whose excess torch.sum adds in another order, points whose values are
+  not adjacent, intrinsics that are not one element;
+- ``kernels._SIGNATURES``' three entries against the exported C functions'
+  parameters in the ``.cu`` sources.
+
+On the card (skipped without one, decided inside the test; the fixtures are
+``chip_smoke.image_cases``'): every output of the three kernels bit-equal
+to its plain version on the card, and a second launch to the first, at
+752x480, 376x240, 1241x376, 640x480 and 377x241 (radtan and fisheye
+points; CLAHE at clip 3 and at 2.7, whose limit's fractional bits make
+the excess sum's order count at 1241x376 and 377x241); a CUDA-graph
+replay of CLAHE, the pyramid, Scharr's gradients and the undistortion
+bit-equal to the eager call, its launches counted at each replay; an f64 CUDA tensor refused with TypeError by each wrapper. The file
+imports no JAX at module level: on the card ``python -m pytest
+--noconftest tests/test_torch_image_kernels.py`` runs it (the tests that
+hold the JAX package skip there).
+"""
+
+import ctypes
+import os
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from ov2slam_torch import kernels
+from ov2slam_torch.core import camera as cm
+from ov2slam_torch.core import image as im
+
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+SIZES = ((376, 240), (377, 241))
+PYR = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+SMOOTH = [3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0]
+DIFF = [-0.5, 0.0, 0.5]
+
+
+def _jax():
+    """JAX as tests/conftest.py sets it up (f64, the CPU), also where a run
+    goes without it (on the card); skips where there is no JAX."""
+    jax = pytest.importorskip("jax")
+    if not jax.config.jax_enable_x64:
+        jax.config.update("jax_enable_x64", True)
+    if jax.config.jax_platforms != "cpu":
+        jax.config.update("jax_platforms", "cpu")
+    return jax
+
+
+def _img(size, seed=0):
+    W, H = size
+    return torch.as_tensor(chip_smoke.image_fixture(W, H, seed))
+
+
+def _bits_equal(a, b):
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def _cam(kind, dev=CPU):
+    return chip_smoke.image_camera(kind, dev)
+
+
+# ----------------------------------------------------------------- CPU #
+
+@pytest.mark.parametrize("size", SIZES, ids=["376x240", "377x241"])
+def test_pyr_down_at_stride_two_equals_filter_then_decimate(size):
+    # the kernel's stride 2 computes only the kept rows and columns; the
+    # plain version at stride 2 is the old filter, then every other one
+    img = _img(size)
+    assert _bits_equal(im.pyr_down(img), im._filter_x(
+        im._filter_y(img, PYR), PYR)[::2, ::2].contiguous())
+
+
+@pytest.mark.parametrize("kind", ["radtan", "fisheye"])
+def test_point_wrappers_and_their_callers_on_cpu(kind):
+    from ov2slam_torch.models.frontend_step import CalibArrays, _undistort_px
+
+    c = _cam(kind)
+    fe = kind == "fisheye"
+    px = chip_smoke.image_points(752, 480, 300, 5, CPU)
+    und = cm.undistort_points_plain(px, *c, fe)
+    assert _bits_equal(cm.undistort_points(px, *c, fe), und)
+    assert _bits_equal(_undistort_px(px, CalibArrays(*c), fe), und)
+    # the plain version is the front end's arithmetic as it was
+    f, cc = torch.stack(c[0:2]), torch.stack(c[2:4])
+    fn = cm.distort_fisheye if fe else cm.distort_radtan
+    xn = (px - cc) / f
+    xu = xn
+    for _ in range(8):
+        xu = xn - (fn(xu, c[4]) - xu)
+    assert _bits_equal(und, xu * f + cc)
+    assert _bits_equal(cm.distort_points(px, *c, fe),
+                       fn((px - cc) / f, c[4]) * f + cc)
+    assert _bits_equal(cm.distort_points(xn, *c, fe, normalized=True),
+                       fn(xn, c[4]) * f + cc)
+    assert cm.undistort_points_plain.cuda_runs == 0
+    assert cm.distort_points_plain.cuda_runs == 0
+
+
+def test_camera_methods_route_through_the_wrappers():
+    from ov2slam_torch.utils.config import CameraConfig
+
+    (fx, fy, cx, cy), dist = chip_smoke.IMAGE_CAMS["radtan"]
+    cam = cm.build_camera(CameraConfig(model="pinhole", width=188,
+                                       height=120, fx=fx, fy=fy, cx=cx,
+                                       cy=cy, dist=dist), device=CPU)
+    px = chip_smoke.image_points(188, 120, 50, 2, CPU)
+    assert _bits_equal(cam.undistort_px(px), cm.undistort_points_plain(
+        px, *cam._intrinsics(), cam.dist))
+    pts = torch.tensor([[0.1, -0.2, 2.0], [-0.5, 0.3, 4.0]])
+    xn = pts[:, 0:2] / pts[:, 2:3]
+    assert _bits_equal(cam.project_cam_to_image_dist(pts),
+                       cm.distort_points_plain(xn, *cam._intrinsics(),
+                                               cam.dist, normalized=True))
+    lut = cm.compute_undist_map(cam)
+    assert lut.shape == (120, 188, 2)
+
+
+FILTERS = ["pyramid", "gaussian_blur", "box_filter", "scharr",
+           "x_first"]
+
+
+@pytest.mark.parametrize("what", FILTERS)
+@pytest.mark.parametrize("size", SIZES, ids=["376x240", "377x241"])
+def test_filters_match_jax(size, what):
+    # same taps in the same order: f32 round-off only (1e-4 on 0..255)
+    _jax()
+    import jax.numpy as jnp
+
+    from ov2slam_tpu.core import image as jimg
+
+    x = chip_smoke.image_fixture(*size)
+    j, t = jnp.asarray(x), torch.as_tensor(x)
+    if what == "pyramid":
+        pairs = list(zip(jimg.build_pyramid(j, 4), im.build_pyramid(t, 4)))
+        assert [p.shape for p, _ in pairs] == [
+            tuple(q.shape) for _, q in pairs]
+    elif what == "gaussian_blur":
+        pairs = [(jimg.gaussian_blur(j, 2.0, 4), im.gaussian_blur(t, 2.0,
+                                                                  4))]
+    elif what == "box_filter":
+        pairs = [(jimg.box_filter(j, 3), im.box_filter(t, 3))]
+    elif what == "scharr":
+        pairs = list(zip(jimg.scharr_gradients(j), im.scharr_gradients(t)))
+    else:
+        g = im.gaussian_kernel1d(1.0, 2)
+        pairs = [(jimg._filter_y(jimg._filter_x(j, PYR), g),
+                  im.separable_filter_plain(t, g, PYR, x_first=True))]
+    for a, b in pairs:
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4)
+
+
+@pytest.mark.parametrize("clip", [2.0, 3.0])
+@pytest.mark.parametrize("size", SIZES, ids=["376x240", "377x241"])
+def test_clahe_matches_jax(size, clip):
+    # histogram counts are exact integers on both sides; the LUT blend is
+    # the same f32 arithmetic: 1e-3 intensity (of 255) covers round-off
+    _jax()
+    import jax.numpy as jnp
+
+    from ov2slam_tpu.core import image as jimg
+
+    x = chip_smoke.image_fixture(*size, seed=1)
+    a = np.asarray(jimg.clahe(jnp.asarray(x), clip_limit=clip))
+    b = im.clahe(torch.as_tensor(x), clip_limit=clip).numpy()
+    np.testing.assert_allclose(b, a, atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["undistort", "distort_px",
+                                  "distort_normalized"])
+@pytest.mark.parametrize("kind", ["radtan", "fisheye"])
+def test_points_match_jax(kind, mode):
+    # f32 on both sides, the same formulas: 1e-3 px
+    _jax()
+    import jax.numpy as jnp
+
+    from ov2slam_tpu.core import camera as jcam
+    from ov2slam_tpu.models import frontend_step as jfs
+
+    fe = kind == "fisheye"
+    c = _cam(kind)
+    jc = jfs.CalibArrays(*(jnp.asarray(v.numpy()) for v in c))
+    px = chip_smoke.image_points(752, 480, 300, 7, CPU)
+    jpx = jnp.asarray(px.numpy())
+    jf = jnp.stack([jc.fx, jc.fy])
+    jcc = jnp.stack([jc.cx, jc.cy])
+    jfn = jcam.distort_fisheye if fe else jcam.distort_radtan
+    if mode == "undistort":
+        a = jfs._undistort_px(jpx, jc, fe)
+        b = cm.undistort_points(px, *c, fe)
+    elif mode == "distort_px":
+        a = jfn((jpx - jcc) / jf, jc.dist) * jf + jcc
+        b = cm.distort_points(px, *c, fe)
+    else:
+        xn = (px - torch.stack(c[2:4])) / torch.stack(c[0:2])
+        a = jfn(jnp.asarray(xn.numpy()), jc.dist) * jf + jcc
+        b = cm.distort_points(xn, *c, fe, normalized=True)
+    np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-3)
+
+
+def test_pack_filter_takes_the_nonzero_taps_in_order():
+    img = _img((64, 32))
+    a = im.pack_filter(img, DIFF, SMOOTH, x_first=True, stride=1)
+    assert (a.H, a.W, a.stride, a.x_first) == (32, 64, 1, 1)
+    assert (a.ny, list(a.offy[:a.ny]), list(a.wy[:a.ny])) == (
+        2, [-1, 1], [-0.5, 0.5])
+    assert (a.nx, list(a.offx[:a.nx])) == (3, [-1, 0, 1])
+    assert list(a.wx[:3]) == [np.float32(t) for t in SMOOTH]
+    # even-length taps: offsets from -len // 2, as the plain pad
+    a = im.pack_filter(img, [0.25] * 4, [1.0] * 9, stride=2)
+    assert list(a.offy[:a.ny]) == [-2, -1, 0, 1]
+    assert list(a.offx[:a.nx]) == list(range(-4, 5))
+    g = im.gaussian_kernel1d(2.0, 4)
+    a = im.pack_filter(img, g, g)
+    assert list(a.wy[:9]) == list(g) and a.ny == 9
+
+
+def test_pack_clahe_rounds_the_limit_and_takes_torch_scan_threads():
+    a = im.pack_clahe(_img((752, 480)), 3.0)
+    # 60 x 94 pixels a tile: 3 * 5640 / 256 = 66.09375, exact in f32
+    assert (a.H, a.W, a.ty, a.tx, a.nbins) == (480, 752, 8, 8, 256)
+    assert a.limit == 66.09375 and a.log_x == 5
+    a = im.pack_clahe(_img((377, 241)), 2.7)
+    limit = max(2.7 * (31 * 48) / 256, 1.0)
+    assert a.limit == float(np.float32(limit)) != limit
+    # ATen's get_log_num_threads_x_inner_scan, in its uint32 arithmetic
+    assert [im.scan_log_threads(r, n) for r, n in (
+        (64, 256), (1, 256), (64, 1024), (4096, 8), (1, 1), (2, 1000))] \
+        == [5, 8, 6, 4, 4, 9]
+
+
+def _refuse(kind):
+    img = _img((64, 32))
+    px = chip_smoke.image_points(64, 32, 10, 0, CPU)
+    c = _cam("radtan")
+    if kind == "ten_taps":
+        return lambda: im.pack_filter(img, [0.1] * 10, PYR)
+    if kind == "stride_3":
+        return lambda: im.pack_filter(img, PYR, PYR, stride=3)
+    if kind == "image_not_contiguous":
+        return lambda: im.pack_filter(img.t(), PYR, PYR)
+    if kind == "image_f64":
+        return lambda: im.pack_filter(img.double(), PYR, PYR)
+    if kind == "image_3d":
+        return lambda: im.pack_filter(img[None], PYR, PYR)
+    if kind == "clahe_not_contiguous":
+        return lambda: im.pack_clahe(img[:, ::2])
+    if kind == "clahe_f64":
+        return lambda: im.pack_clahe(img.double())
+    if kind == "clahe_bins":
+        return lambda: im.pack_clahe(img, nbins=2048)
+    if kind == "clahe_few_bins":
+        return lambda: im.pack_clahe(img, nbins=64)
+    if kind == "clahe_bins_not_4k":
+        return lambda: im.pack_clahe(img, nbins=254)
+    if kind == "clahe_few_tiles":
+        return lambda: im.pack_clahe(img, tiles=(2, 4))
+    if kind == "points_not_adjacent":
+        both = torch.zeros((10, 4))
+        return lambda: cm.pack_points(both[:, ::2], *c, False, 0)
+    if kind == "points_f64":
+        return lambda: cm.pack_points(px.double(), *c, False, 0)
+    if kind == "points_shape":
+        return lambda: cm.pack_points(px[:, :1], *c, False, 0)
+    if kind == "intrinsic_two_elements":
+        return lambda: cm.pack_points(px, c[0].expand(2), *c[1:], False, 0)
+    if kind == "dist_shape":
+        return lambda: cm.pack_points(px, *c[:4], c[4][:3], False, 0)
+    if kind == "mode":
+        return lambda: cm.pack_points(px, *c, False, 3)
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind,exc", [
+    ("ten_taps", ValueError), ("stride_3", ValueError),
+    ("image_not_contiguous", ValueError), ("image_f64", TypeError),
+    ("image_3d", ValueError), ("clahe_not_contiguous", ValueError),
+    ("clahe_f64", TypeError), ("clahe_bins", ValueError),
+    ("clahe_few_bins", ValueError), ("clahe_bins_not_4k", ValueError),
+    ("clahe_few_tiles", ValueError),
+    ("points_not_adjacent", ValueError), ("points_f64", TypeError),
+    ("points_shape", ValueError), ("intrinsic_two_elements", ValueError),
+    ("dist_shape", ValueError), ("mode", ValueError)])
+def test_packing_refuses_what_the_kernels_do_not_take(kind, exc):
+    with pytest.raises(exc):
+        _refuse(kind)()
+
+
+def test_pack_points_reads_column_views_in_place():
+    state = torch.zeros((10, 8))
+    c = _cam("fisheye")
+    a = cm.pack_points(state[:, 5:7], *c, True, cm.MODE_UNDISTORT)
+    assert (a.pts, a.n, a.stride) == (state.data_ptr() + 20, 10, 8)
+    assert (a.fx, a.dist, a.fisheye, a.iters) == (
+        c[0].data_ptr(), c[4].data_ptr(), 1, 8)
+    grid = torch.zeros((3, 5, 2))
+    assert cm.pack_points(grid, *c, False, 1).n == 15
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_params(lib):
+    """The C types of the exported launch function's parameters, from
+    ``csrc/<lib>.cu``."""
+    with open(os.path.join(kernels.CSRC, f"{lib}.cu")) as f:
+        text = f.read()
+    fn = kernels._SIGNATURES[lib][0]
+    m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
+    assert m, fn
+    out = []
+    for p in m.group(1).split(","):
+        decl = " ".join(p.split())
+        t = decl.rsplit(" ", 1)[0].replace(" *", "*")
+        if decl.rsplit(" ", 1)[1].startswith("*"):
+            t += "*"
+        out.append(_C_TYPES[t])
+    return out
+
+
+@pytest.mark.parametrize("lib", ["undistort_points", "separable_filter",
+                                 "clahe"])
+def test_signatures_match_the_c_sources(lib):
+    fn, restype, argtypes = kernels._SIGNATURES[lib]
+    assert restype is ctypes.c_int and lib in kernels.KERNELS
+    assert argtypes == _c_params(lib)
+
+
+@pytest.mark.parametrize("fn,figures", [
+    (lambda r: r.undistort_points_bound(512),
+     (135168, 8224, "bytes")),
+    (lambda r: r.separable_filter_bound(480, 752, 5, 5, 2),
+     (2707200, 1804800, "bytes")),
+    (lambda r: r.clahe_bound(480, 752), (12420096, 2887680, "bytes"))],
+    ids=["undistort_points", "separable_filter", "clahe"])
+def test_roofline_bounds(fn, figures):
+    from ov2slam_torch import roofline
+
+    b = fn(roofline)
+    assert (b["ops"], b["bytes"], b["bound_by"]) == figures
+    assert b["bound_ms"] == pytest.approx(1e3 * figures[1]
+                                          / roofline.HBM_BYTES_PER_S)
+
+
+# --------------------------------------------------------------- card #
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("size", chip_smoke.IMAGE_SIZES,
+                         ids=[f"{w}x{h}" for w, h in chip_smoke.IMAGE_SIZES])
+def test_cuda_kernels_bit_equal_to_plain(size):
+    dev = _card()
+    img = torch.as_tensor(chip_smoke.image_fixture(*size), device=dev)
+    digests, errs = {}, {}
+    held = chip_smoke.image_check(
+        chip_smoke.image_cases(f"{size}", img, dev), digests, errs)
+    assert held == 17 and len(digests) == 14
+    assert errs == dict(clahe=0.0, separable_filter=0.0,
+                        undistort_points=0.0)
+
+
+def test_cuda_graph_replay_equals_eager_and_counts_launches():
+    from ov2slam_torch import graphs
+
+    dev = _card()
+
+    def step(img, px, fx, fy, cx, cy, dist):
+        eq = im.clahe(img, 3.0)
+        return (*im.build_pyramid(eq, 4), *im.scharr_gradients(eq),
+                cm.undistort_points(px, fx, fy, cx, cy, dist))
+
+    g = graphs.GraphedStep(step)
+    c = _cam("radtan", dev)
+    args = [(torch.as_tensor(chip_smoke.image_fixture(752, 480, s),
+                             device=dev),
+             chip_smoke.image_points(752, 480, 512, s, dev), *c)
+            for s in range(3)]
+    for a in args[:2]:
+        g(*a)
+    assert (g.eager, g.captures) == (1, 1)
+    fns = (im.clahe, im.separable_filter, cm.undistort_points)
+    n0 = [f.launches for f in fns]
+    r0 = g.replays
+    for a in args[::-1]:
+        out = g(*a)
+        ref = step(*a)
+        torch.cuda.synchronize()
+        assert all(_bits_equal(x.cpu(), y.cpu()) for x, y in zip(out, ref))
+    # three replays and three eager calls: CLAHE 1, filters 5, points 1
+    assert g.replays - r0 == 3
+    assert [f.launches - n for f, n in zip(fns, n0)] == [6, 30, 6]
+
+
+def test_cuda_f64_raises_type_error():
+    dev = _card()
+    img = torch.zeros((48, 64), dtype=torch.float64, device=dev)
+    px = torch.zeros((8, 2), dtype=torch.float64, device=dev)
+    c = _cam("radtan", dev)
+    for run in (lambda: im.clahe(img), lambda: im.pyr_down(img),
+                lambda: im.scharr_gradients(img),
+                lambda: cm.undistort_points(px, *c),
+                lambda: cm.distort_points(px, *c)):
+        with pytest.raises(TypeError):
+            run()

@@ -180,6 +180,9 @@ HAND_KERNELS = {
     "hamming_score": ("score_kernel",),
     "ba_normal_eq": ("ba_rows_kernel", "ba_sums_kernel"),
     "ba_schur_step": ("schur_prepare_kernel", "schur_step_kernel"),
+    "undistort_points": ("undistort_points_kernel",),
+    "separable_filter": ("separable_filter_kernel",),
+    "clahe": ("clahe_lut_kernel", "clahe_apply_kernel"),
 }
 # a kernel's name, demangled or mangled (after its length), not inside a
 # longer identifier
