@@ -15,8 +15,9 @@ Phases (any failure exits non-zero):
      ATE and endpoint error, and on the scorer and the KLT having run as
      their kernels (and never as a plain version on the card; every SLAM
      slice, A-F and H, is held to the KLT kernel so, to the undistortion
-     and filter kernels and, where its profile runs CLAHE, CLAHE's
-     (``gate_image_launches``), and to having replayed its keyframe
+     and filter kernels (the pyramid, BRIEF's blur, and Scharr's pair
+     where its detector takes it) and, where its profile runs CLAHE,
+     CLAHE's (``gate_image_launches``), and to having replayed its keyframe
      detection and, with inverse-depth BA, its local BA as CUDA graphs);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
      ``accurate`` profile and the default 2048-keyframe index — gates on
@@ -73,13 +74,15 @@ Phases (any failure exits non-zero):
      (``csrc/undistort_points.cu``, ``csrc/separable_filter.cu``,
      ``csrc/clahe.cu``; ``phase_image``) against their plain versions on
      the card, atol 0: at 752x480, 376x240, 1241x376, 640x480 and 377x241
-     on a fixture (CLAHE, its pyramid, the BRIEF blur, the box filter,
-     both Scharr gradients; the undistortion and both distortion modes of
+     on a fixture (CLAHE, its pyramid at 4 levels and at 6 (two chained
+     launches), one pyramid level, the BRIEF blur, the box filter, both
+     Scharr gradients; the undistortion and both distortion modes of
      512 pixels through a radtan and a fisheye camera, the radtan
      undistortion map, ``Camera.undistort_px``) and on slices A's and B's
      frame 40 (CLAHE and the filters); a second launch equal to the
      first; one line of output digests (``[image] digests``); each kernel
-     timed at slice B's call (ms, device ms, plain ms, bound);
+     timed at slice B's call (ms, device ms, plain ms, bound), the filters
+     beside the cuDNN convolution that computes the same function;
   6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
      BA, results written — gates on mono initialization, post-init frames,
      scale-aligned ATE, resets and the result files;
@@ -838,7 +841,8 @@ def run_slice(name: str, dev, seq=None):
                index_rows=len(slam.loop_closer.index.kf_ids),
                lc_recent_mask=cfg.lc_recent_mask, max_kps=cfg.max_kps,
                index_cube_bytes=slam.loop_closer.index._cube.numel(),
-               **klt, **pose, **image, use_clahe=cfg.use_clahe, **graph,
+               **klt, **pose, **image, use_clahe=cfg.use_clahe,
+               use_scharr=uses_scharr(cfg), **graph,
                inverse_depth=cfg.use_inv_depth,
                stereo=cfg.stereo)
     print(f"[slice {name}] " + json.dumps(res), flush=True)
@@ -846,7 +850,7 @@ def run_slice(name: str, dev, seq=None):
           flush=True)
     gate_klt_launches(name, res)
     gate_pose_launches(name, res)
-    gate_image_launches(name, res, cfg.use_clahe)
+    gate_image_launches(name, res, cfg.use_clahe, res["use_scharr"])
     gate_graphs(name, res, cfg.use_inv_depth, cfg.stereo)
     if launches <= 0:
         fail(f"slice {name}: the scorer kernel never launched")
@@ -1116,7 +1120,8 @@ def run_async_slice(name: str, dev, seq=None):
                map_lock_wait_ms={k: 1e3 * v for k, v in
                                  sorted(waits.wait_s.items())},
                map_lock_handoffs=slam.map_lock.handoffs, **klt,
-               **pose, **image, use_clahe=cfg.use_clahe, **graph,
+               **pose, **image, use_clahe=cfg.use_clahe,
+               use_scharr=uses_scharr(cfg), **graph,
                inverse_depth=cfg.use_inv_depth,
                stereo=cfg.stereo)
     if slam.loop_closer is not None:
@@ -1149,7 +1154,7 @@ def gate_async(r, b=None) -> None:
         fail(f"slice {name}: the plain scorer ran on cuda")
     gate_klt_launches(name, r)
     gate_pose_launches(name, r)
-    gate_image_launches(name, r, r["use_clahe"])
+    gate_image_launches(name, r, r["use_clahe"], r["use_scharr"])
     gate_graphs(name, r, r["inverse_depth"], r["stereo"])
     sd = r["sync_debug"]
     print(f"[slice {name}] synchronizing calls reported by "
@@ -1654,6 +1659,7 @@ def run_slice_h(part: str, dev):
                                  else 0),
                worker_errors=getattr(slam, "n_worker_errors", None),
                **klt, **pose, **image, use_clahe=slam.cfg.use_clahe,
+               use_scharr=uses_scharr(slam.cfg),
                **graph, inverse_depth=slam.cfg.use_inv_depth)
     print(f"[slice H] {part}: " + json.dumps(res), flush=True)
     return res
@@ -1672,7 +1678,7 @@ def gate_slice_h(r) -> None:
         fail(f"slice H {part}: the plain scorer ran on cuda")
     gate_klt_launches(f"H {part}", r)
     gate_pose_launches(f"H {part}", r)
-    gate_image_launches(f"H {part}", r, r["use_clahe"])
+    gate_image_launches(f"H {part}", r, r["use_clahe"], r["use_scharr"])
     gate_graphs(f"H {part}", r, r["inverse_depth"], r["stereo"])
     if part == "kitti" and r["scorer_launches"] < 1:
         fail("slice H kitti: the scorer kernel never launched under the CLI")
@@ -3897,7 +3903,8 @@ def phase_ba(dev, captured):
 
 
 # ---------------------------------------------------------------------- #
-# phase image: the undistortion, separable-filter and CLAHE kernels
+# phase image: the undistortion, separable-filter (one image, the
+# pyramid, Scharr's pair) and CLAHE kernels
 # ---------------------------------------------------------------------- #
 
 # (W, H): slice B and E-F, slice A, slice H's KITTI (CLAHE's ragged
@@ -3922,13 +3929,22 @@ def reset_image_counts() -> None:
     versions' calls on CUDA tensors."""
     from ov2slam_torch.core import camera, image
 
-    for fn in (camera.undistort_points, image.separable_filter,
-               image.clahe):
+    for fn in image_wrappers():
         fn.launches = 0
         fn.shapes.clear()
         fn.origins.clear()
     for fn in image_plain_versions():
         fn.cuda_runs = 0
+
+
+def image_wrappers():
+    """The image and camera kernels' wrappers, each counting its launches:
+    the undistortion, the one-image filter, the pyramid, Scharr's pair and
+    CLAHE."""
+    from ov2slam_torch.core import camera, image
+
+    return (camera.undistort_points, image.separable_filter,
+            image.build_pyramid, image.scharr_gradients, image.clahe)
 
 
 def image_plain_versions():
@@ -3939,27 +3955,39 @@ def image_plain_versions():
 
 
 def image_counts():
-    """The counters :func:`reset_image_counts` zeroes: each library's
-    launches (a CLAHE launch is two kernels; a launch inside a CUDA graph
-    counts at each replay), and the plain versions' calls on CUDA
-    tensors."""
+    """The counters :func:`reset_image_counts` zeroes: each wrapper's
+    launches (one kernel each; a launch inside a CUDA graph counts at each
+    replay), and the plain versions' calls on CUDA tensors."""
     from ov2slam_torch.core import camera, image
 
     return dict(undistort_launches=camera.undistort_points.launches,
                 filter_launches=image.separable_filter.launches,
+                pyramid_launches=image.build_pyramid.launches,
+                scharr_launches=image.scharr_gradients.launches,
                 clahe_launches=image.clahe.launches,
                 image_plain_runs_on_cuda=sum(
                     fn.cuda_runs for fn in image_plain_versions()))
 
 
-def gate_image_launches(name: str, counts, use_clahe: bool) -> None:
-    """Every SLAM slice undistorts its tracks with the undistortion kernel
-    and builds its pyramids with the filter kernel, and runs CLAHE's
-    kernels where its profile turns CLAHE on; no run calls a plain version
-    of the three on the card."""
+def uses_scharr(cfg) -> bool:
+    """Whether a config's keyframe detector takes Scharr's gradients (the
+    Shi-Tomasi and single-scale detectors; FAST does not)."""
+    return bool(cfg.use_shi_tomasi or cfg.use_singlescale_detector)
+
+
+def gate_image_launches(name: str, counts, use_clahe: bool,
+                        use_scharr: bool) -> None:
+    """Every SLAM slice undistorts its tracks with the undistortion kernel,
+    builds its pyramids with the pyramid kernel and blurs for BRIEF with
+    the one-image filter kernel, takes Scharr's gradients with the pair
+    kernel where its detector needs them, and runs CLAHE's kernel where its
+    profile turns CLAHE on; no run calls a plain version of the image and
+    camera functions on the card."""
     for key, what, needed in (
             ("undistort_launches", "undistort_points", True),
             ("filter_launches", "separable_filter", True),
+            ("pyramid_launches", "build_pyramid", True),
+            ("scharr_launches", "scharr_gradients", use_scharr),
             ("clahe_launches", "clahe", use_clahe)):
         if needed and counts[key] < 1:
             fail(f"slice {name}: the {what} kernel never launched")
@@ -4004,10 +4032,13 @@ def image_points(W: int, H: int, n: int, seed: int, dev):
 
 def image_cases(label: str, img, dev, clip: float = 3.0, levels: int = 4,
                 cams: bool = True):
-    """(kernel, name, kernel call, plain call) of every output the three
-    kernels give on ``img``: CLAHE (at ``clip`` and, with ``cams``, at
-    ``IMAGE_ODD_CLIP``), the pyramid of its output, the blur, the box
-    filter and both Scharr gradients (each pass order), and, with
+    """(kernel, name, kernel call, plain call) of every output the image
+    and camera kernels give on ``img``: CLAHE (at ``clip`` and, with
+    ``cams``, at ``IMAGE_ODD_CLIP``), the pyramid of its output (at
+    ``levels`` and at 6 levels, two chained launches) and one level of it
+    (the one-image filter at stride 2), the blur, the box filter, two
+    filters of tap counts the kernel takes in its generic form (x first;
+    stride 2) and both Scharr gradients (each pass order), and, with
     ``cams``, the undistortion and both distortion modes of
     ``IMAGE_POINTS`` pixels through each fixture camera and the image's
     undistortion map through the radtan one, and ``Camera.undistort_px``
@@ -4029,18 +4060,33 @@ def image_cases(label: str, img, dev, clip: float = 3.0, levels: int = 4,
                 return fn()
         return run
 
-    sf = "separable_filter"
+    sf, bp = "separable_filter", "build_pyramid"
     cases = [
         ("clahe", f"{label} clahe", lambda: im.clahe(img, clip),
          lambda: im.clahe_plain(img, clip)),
-        (sf, f"{label} pyramid", lambda: im.build_pyramid(eq, levels)[1:],
-         plain_filters(lambda: im.build_pyramid(eq, levels)[1:])),
+        (bp, f"{label} pyramid", lambda: im.build_pyramid(eq, levels)[1:],
+         lambda: im.build_pyramid_plain(eq, levels)[1:]),
+        (bp, f"{label} pyramid 6", lambda: im.build_pyramid(eq, 6)[1:],
+         lambda: im.build_pyramid_plain(eq, 6)[1:]),
+        (sf, f"{label} pyr_down", lambda: im.pyr_down(eq),
+         plain_filters(lambda: im.pyr_down(eq))),
         (sf, f"{label} gaussian_blur", lambda: im.gaussian_blur(img, 2.0, 4),
          plain_filters(lambda: im.gaussian_blur(img, 2.0, 4))),
         (sf, f"{label} box_filter", lambda: im.box_filter(img, 3),
          plain_filters(lambda: im.box_filter(img, 3))),
-        (sf, f"{label} scharr", lambda: im.scharr_gradients(img),
-         plain_filters(lambda: im.scharr_gradients(img)))]
+        # tap counts the kernel has no instance of its own for
+        (sf, f"{label} x_first", lambda: im.separable_filter(
+            img, im.SCHARR_DIFF, im.SCHARR_SMOOTH, x_first=True),
+         lambda: im.separable_filter_plain(
+            img, im.SCHARR_DIFF, im.SCHARR_SMOOTH, x_first=True)),
+        (sf, f"{label} box_filter stride 2",
+         lambda: im.separable_filter(img, [1 / 3] * 3, [1 / 3] * 3,
+                                     stride=2),
+         lambda: im.separable_filter_plain(img, [1 / 3] * 3, [1 / 3] * 3,
+                                           stride=2)),
+        ("scharr_gradients", f"{label} scharr",
+         lambda: im.scharr_gradients(img),
+         lambda: im.scharr_gradients_plain(img))]
     if not cams:
         return cases
     odd = IMAGE_ODD_CLIP
@@ -4129,40 +4175,70 @@ def image_check(cases, digests, errs):
 def image_launches_per_call(fn):
     """The image and camera kernels' launches one call of ``fn`` makes
     (from the wrappers' counters)."""
-    from ov2slam_torch.core import camera, image
-
-    fns = (camera.undistort_points, image.separable_filter, image.clahe)
+    fns = image_wrappers()
     n0 = [f.launches for f in fns]
     fn()
     return sum(f.launches - n for f, n in zip(fns, n0))
 
 
-def time_image(label, run, plain, bound, runs: int = 20,
+def time_image(label, run, plain, bound, library=None, runs: int = 20,
                plain_runs: int = 3):
     """One main-path call: median ms (events around one call), device ms
     (``runs`` calls queued behind a sleep), the wrappers' launches a call
-    (1 expected), its bound and the plain version's median ms."""
+    (1 expected), its bound and the plain version's median ms; with
+    ``library`` ((conv, pad): the cuDNN convolution that computes the same
+    function on the padded input, and the pad, a call of its own), the
+    convolution's median ms (``library_ms``) and device ms, and the pad's
+    device ms (``library_pad_device_ms``); else ``library_ms`` None."""
     launches = image_launches_per_call(run)
     if launches != 1:
         fail(f"image {label}: {launches} launches a call, not 1")
-    return dict(label=label, ms=time_cuda(run, runs),
-                device_ms=time_cuda_queued(run, runs),
-                launches_per_call=launches,
-                plain_ms=time_cuda(plain, plain_runs), **bound)
+    row = dict(label=label, ms=time_cuda(run, runs),
+               device_ms=time_cuda_queued(run, runs),
+               launches_per_call=launches,
+               plain_ms=time_cuda(plain, plain_runs), **bound,
+               library_ms=None)
+    if library is not None:
+        conv, pad = library
+        row.update(library_ms=time_cuda(conv, runs),
+                   library_device_ms=time_cuda_queued(conv, runs),
+                   library_pad_device_ms=time_cuda_queued(pad, runs))
+    return row
+
+
+def conv2d_yardstick(img, taps_y, taps_x, stride: int = 1):
+    """(conv, pad): ``F.conv2d`` of ``img`` padded by replication with the
+    outer products of the taps (one output channel a pair; TF32 off, as
+    the port runs), at ``stride``, and the pad. A yardstick for the filter
+    kernels' times; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cudnn.allow_tf32 = False
+    w = torch.stack([torch.outer(torch.as_tensor(ty, dtype=torch.float32),
+                                 torch.as_tensor(tx, dtype=torch.float32))
+                     for ty, tx in zip(taps_y, taps_x)])[:, None]
+    w = w.to(img.device)
+    r = w.shape[-1] // 2
+    padded = F.pad(img[None, None], (r, r, r, r), mode="replicate")
+    return (lambda: F.conv2d(padded, w, stride=stride),
+            lambda: F.pad(img[None, None], (r, r, r, r), mode="replicate"))
 
 
 def phase_image(dev, frames):
-    """The three kernels against their plain versions on the card, bit for
-    bit: at each of ``IMAGE_SIZES`` on a fixture (CLAHE, its pyramid, the
-    blur, box filter and Scharr gradients; the undistortion and distortion
+    """The image and camera kernels (the undistortion, the one-image
+    filter, the pyramid, Scharr's pair, CLAHE) against their plain versions
+    on the card, bit for bit: at each of ``IMAGE_SIZES`` on a fixture
+    (``image_cases``: CLAHE, its pyramid, a level, the blur, box filter
+    and Scharr gradients; the undistortion and distortion
     of pixels through a radtan and a fisheye camera, the radtan image's
     undistortion map) and on ``frames`` ({slice: (frame, clip limit)}:
     slices A's and B's frame ``IMAGE_FRAME`` as the front end uploads it,
     in uint8, with the config's clip limit); then each kernel timed at
-    slice B's main-path call.
+    slice B's main-path call, the filters beside their cuDNN yardstick
+    (``conv2d_yardstick``).
     Returns the timing rows by kernel, the largest difference by kernel
     (``image_check``'s) and the digests."""
-    import numpy as np
     import torch
 
     from ov2slam_torch import roofline
@@ -4190,8 +4266,9 @@ def phase_image(dev, frames):
     img = torch.as_tensor(to_u8(frame_b), device=dev).to(torch.float32)
     H, W = img.shape
     eq = im.clahe(img, clip_b)
-    k = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
+    k = im.PYR_TAPS
     g = im.gaussian_kernel1d(2.0, 4)
+    sm, df = im.SCHARR_SMOOTH, im.SCHARR_DIFF
     px = image_points(W, H, IMAGE_POINTS, 1, dev)
     c = image_camera("radtan", dev)
     plain_sf = im.separable_filter_plain
@@ -4202,24 +4279,39 @@ def phase_image(dev, frames):
             lambda: cm.undistort_points_plain(px, *c),
             roofline.undistort_points_bound(IMAGE_POINTS))],
         separable_filter=[
-            time_image(f"pyramid level {W}x{H} -> {W // 2}x{H // 2}",
-                       lambda: im.pyr_down(eq),
-                       lambda: plain_sf(eq, k, k, stride=2),
-                       roofline.separable_filter_bound(H, W, 5, 5, 2)),
             time_image(f"9-tap blur {W}x{H} (BRIEF's)",
                        lambda: im.gaussian_blur(img, 2.0, 4),
                        lambda: plain_sf(img, g, g),
-                       roofline.separable_filter_bound(H, W, 9, 9, 1))],
+                       roofline.separable_filter_bound(H, W, 9, 9, 1),
+                       conv2d_yardstick(img, [g], [g])),
+            time_image(f"pyramid level {W}x{H} -> {W // 2}x{H // 2}",
+                       lambda: im.pyr_down(eq),
+                       lambda: plain_sf(eq, k, k, stride=2),
+                       roofline.separable_filter_bound(H, W, 5, 5, 2),
+                       conv2d_yardstick(eq, [k], [k], stride=2))],
+        build_pyramid=[time_image(
+            f"4 levels of {W}x{H} after CLAHE",
+            lambda: im.build_pyramid(eq, 4),
+            lambda: im.build_pyramid_plain(eq, 4),
+            roofline.pyramid_bound(H, W, 4))],
+        scharr_gradients=[time_image(
+            f"both gradients of {W}x{H}", lambda: im.scharr_gradients(img),
+            lambda: im.scharr_gradients_plain(img),
+            roofline.scharr_pair_bound(H, W),
+            conv2d_yardstick(img, [sm, df], [df, sm]))],
         clahe=[time_image(f"slice B frame {IMAGE_FRAME}, {W}x{H}, clip "
                           f"{clip_b}", lambda: im.clahe(img, clip_b),
                           lambda: im.clahe_plain(img, clip_b),
                           roofline.clahe_bound(H, W))])
     for name, rs in rows.items():
         for r in rs:
+            lib = ("" if r["library_ms"] is None else
+                   f", conv2d {r['library_device_ms']:.5f} ms on the device "
+                   f"(+ pad {r['library_pad_device_ms']:.5f})")
             print(f"[image] {name} {r['label']}: {r['ms']:.4f} ms per call, "
                   f"{r['device_ms']:.5f} ms on the device, plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
-                  f"({r['bound_by']})", flush=True)
+                  f"({r['bound_by']}){lib}", flush=True)
     print(f"[image] phase {time.perf_counter() - t0:.1f} s", flush=True)
     return rows, errs, digests
 
@@ -4445,7 +4537,7 @@ def phase_bench(dev):
         fail("bench: the plain scorer ran on cuda")
     gate_klt_launches("bench", klt)
     gate_pose_launches("bench", pose)
-    gate_image_launches("bench", image, False)
+    gate_image_launches("bench", image, False, False)
     gate_ba_launches("bench", graph, True)
     print("[bench] CUDA-graph steps' calls: " + json.dumps(graph),
           flush=True)
@@ -4676,20 +4768,26 @@ def main() -> int:
     # the image and camera kernels: slice B's main-path calls' figures;
     # launches those of every SLAM slice and of the bench
     image_line = []
-    for name, key, replaces in (
-            ("undistort_points", "undistort_launches",
+    for name, key, source, replaces in (
+            ("undistort_points", "undistort_launches", "undistort_points",
              "ov2slam_tpu/models/frontend_step.py:53"),
-            ("separable_filter", "filter_launches",
+            ("separable_filter", "filter_launches", "separable_filter",
              "ov2slam_tpu/core/image.py:24"),
-            ("clahe", "clahe_launches", "ov2slam_tpu/core/image.py:98")):
+            ("build_pyramid", "pyramid_launches", "separable_filter",
+             "ov2slam_tpu/core/image.py:84"),
+            ("scharr_gradients", "scharr_launches", "separable_filter",
+             "ov2slam_tpu/core/image.py:68"),
+            ("clahe", "clahe_launches", "clahe",
+             "ov2slam_tpu/core/image.py:98")):
         call = image_rows[name][0]
         image_line.append(dict(
-            name=name, route="cuda", source=f"ov2slam_torch/csrc/{name}.cu",
-            replaces=replaces,
+            name=name, route="cuda",
+            source=f"ov2slam_torch/csrc/{source}.cu", replaces=replaces,
             launches=sum(r[key] for r in slices) + bn["image"][key],
-            max_abs_err=image_err[name], library_ms=None,
+            max_abs_err=image_err[name],
             **{k: call[k] for k in ("ms", "device_ms", "plain_ms",
-                                    "bound_ms", "bound_by", "label")},
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "label")},
             launches_by_slice={r["slice"] + (" " + r["part"] if "part" in r
                                              else ""): r[key]
                                for r in slices},

@@ -1,0 +1,184 @@
+#!/usr/bin/env python3
+"""Device times of the front end's image kernels at slice B's shapes, and
+the cuDNN convolution that computes the same filters (GPU only).
+
+Renders slice B's frame 40 (752x480, in uint8 as the front end uploads it)
+and, for each call below, runs it ``--calls`` times under
+``torch.profiler`` (CUDA activity only) and once more ``--calls`` times
+queued behind a sleep between two CUDA events:
+
+- ``clahe``: CLAHE at slice B's clip limit;
+- ``pyramid``: ``build_pyramid`` of CLAHE's output, 4 levels;
+- ``pyr_down``: one pyramid level, 752x480 -> 376x240;
+- ``scharr``: ``scharr_gradients`` of the frame (both gradients);
+- ``blur``: BRIEF's 9-tap blur (``gaussian_blur(img, 2.0, 4)``);
+- ``conv2d <filter>``: the library yardstick, ``F.conv2d`` of the
+  replicate-padded image with the outer product of the taps (TF32 off,
+  as the port runs), at the pyramid level (stride 2), the blur, and
+  Scharr's pair (two output channels); the pad (``F.pad``) is timed as a
+  call of its own (``pad <filter>``), since the yardstick takes it as a
+  second call.
+
+Prints one JSON line: each call's device kernels (name, launches a call,
+mean device µs), its summed device µs a call from the trace, its device
+ms a call queued, the hand kernels' wrapper launches a call, and the sha1
+of its outputs' bytes (equal digests across two trees mean equal bits);
+for the yardstick, its largest difference to the kernel's output. Runs on
+any tree of the port, so that two builds compare in one chip call: copy
+the script into an unpacked earlier tree and run it there too, in turns.
+
+    python3 image_probe.py --label change --calls 20
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import sys
+
+
+def trace_call(fn, calls: int):
+    """(rows by kernel name, device µs a call) of ``calls`` calls of ``fn``
+    from a torch.profiler trace of CUDA activity. A kernel that a call
+    launches k > 1 times (a pyramid level a launch) also gets its mean µs
+    by position in the call (``by_position``), where the trace holds k
+    events for every call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = {}
+    for e in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                e, "is_user_annotation", False):
+            continue
+        rows.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    out = {}
+    for k, ts in sorted(rows.items(), key=lambda kv: -sum(kv[1])):
+        row = dict(per_call=len(ts) / calls, mean_us=sum(ts) / len(ts))
+        per = len(ts) // calls
+        if per > 1 and per * calls == len(ts):
+            row["by_position"] = [sum(ts[i::per]) / calls
+                                  for i in range(per)]
+        out[k[:90]] = row
+    return out, sum(sum(ts) for ts in rows.values()) / calls
+
+
+def wrapper_launches(fn):
+    """The image wrappers' launches one call of ``fn`` makes."""
+    from ov2slam_torch.core import image
+
+    fns = [getattr(image, n) for n in ("separable_filter", "build_pyramid",
+                                       "scharr_gradients", "clahe")]
+    fns = [f for f in fns if hasattr(f, "launches")]
+    n0 = [f.launches for f in fns]
+    fn()
+    return {f.__name__: f.launches - n for f, n in zip(fns, n0)
+            if f.launches != n}
+
+
+def digest(out):
+    import torch
+
+    h = hashlib.sha1()
+    for t in (out if isinstance(out, (list, tuple)) else [out]):
+        torch.cuda.synchronize()
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:12]
+
+
+def main(argv) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--label", default="")
+    ap.add_argument("--calls", type=int, default=20)
+    ap.add_argument("--only", nargs="+", default=None,
+                    help="time only these calls (names as printed)")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        print("image_probe: needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke
+    from ov2slam_torch import kernels
+    from ov2slam_torch.core import image as im
+    from ov2slam_torch.io import synthetic
+    from ov2slam_torch.models.frontend import to_u8
+    from ov2slam_torch.roofline import nvidia_smi_line
+    from ov2slam_torch.utils import profiles
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kernels.build_all(["separable_filter", "clahe"])
+    seq = synthetic.stream_sequence(**chip_smoke.slice_configs()["B"][0],
+                                    realism=None)
+    clip = chip_smoke.slice_config("B", seq, profiles).clahe_val
+    frame = seq.frame(chip_smoke.IMAGE_FRAME)[0]
+    img = torch.as_tensor(to_u8(frame), device=dev).to(torch.float32)
+    eq = im.clahe(img, clip)
+    pyr = torch.as_tensor(np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32)
+                          / 16.0, device=dev)
+    g = torch.as_tensor(im.gaussian_kernel1d(2.0, 4), device=dev)
+    smooth = torch.tensor([3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0],
+                          device=dev)
+    diff = torch.tensor([-0.5, 0.0, 0.5], device=dev)
+
+    calls = dict(
+        clahe=lambda: im.clahe(img, clip),
+        pyramid=lambda: im.build_pyramid(eq, 4)[1:],
+        pyr_down=lambda: im.pyr_down(eq),
+        scharr=lambda: im.scharr_gradients(img),
+        blur=lambda: im.gaussian_blur(img, 2.0, 4))
+    # the yardstick: (input, taps as one (out, 1, k, k) weight, stride,
+    # the kernel call whose output it computes)
+    yard = {"pyr_down": (eq, torch.outer(pyr, pyr)[None, None], 2),
+            "blur": (img, torch.outer(g, g)[None, None], 1),
+            "scharr": (img, torch.stack([torch.outer(smooth, diff),
+                                         torch.outer(diff, smooth)])[:, None],
+                       1)}
+    for name, (x, w, s) in yard.items():
+        r = w.shape[-1] // 2
+        padded = F.pad(x[None, None], (r, r, r, r), mode="replicate")
+        calls[f"conv2d {name}"] = (
+            lambda p=padded, w=w, s=s: F.conv2d(p, w, stride=s))
+        calls[f"pad {name}"] = (
+            lambda x=x, r=r: F.pad(x[None, None], (r, r, r, r),
+                                   mode="replicate"))
+
+    if args.only:
+        calls = {k: v for k, v in calls.items() if k in args.only}
+        yard = {k: v for k, v in yard.items() if f"conv2d {k}" in calls}
+    rows = {}
+    for name, fn in calls.items():
+        kern, dev_us = trace_call(fn, args.calls)
+        row = dict(kernels=kern, device_us_per_call=dev_us,
+                   queued_ms=chip_smoke.time_cuda_queued(fn, args.calls),
+                   launches=wrapper_launches(fn))
+        if not name.startswith(("conv2d", "pad")):
+            row["digest"] = digest(fn())
+        rows[name] = row
+    for name in yard:
+        ref = calls[name]() if name in calls else None
+        if ref is None:
+            continue
+        ref = torch.stack(list(ref)) if isinstance(ref, tuple) else ref
+        out = calls[f"conv2d {name}"]()[0]
+        rows[f"conv2d {name}"]["max_abs_diff_to_kernel"] = float(
+            (out - ref.reshape(out.shape)).abs().max())
+    print(json.dumps(dict(label=args.label, device=nvidia_smi_line(),
+                          torch=torch.__version__, calls=args.calls,
+                          rows=rows)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

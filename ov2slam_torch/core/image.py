@@ -7,11 +7,14 @@ shift-add form, tap by tap, so the port sums in the same order; CLAHE
 counts its tile histograms with ``scatter_add`` instead of the TPU's
 comparison-reduce (the counts are exact integers either way).
 
-On CUDA tensors the filters (:func:`separable_filter`, and with it the
-blur, box filter, Scharr gradients and pyramid) launch
-``csrc/separable_filter.cu``, one launch a filtered image, and
-:func:`clahe` launches ``csrc/clahe.cu``; CPU tensors take the plain
-versions (:func:`separable_filter_plain`, :func:`clahe_plain`).
+On CUDA tensors the filters launch ``csrc/separable_filter.cu``:
+:func:`separable_filter` (and with it the blur, box filter and
+``pyr_down``) one launch a filtered image, :func:`build_pyramid` one launch
+for up to three levels below its base (:func:`pyramid_plan`), and
+:func:`scharr_gradients` one launch for both gradients; :func:`clahe`
+launches ``csrc/clahe.cu``, one kernel. CPU tensors take the plain versions
+(:func:`separable_filter_plain`, :func:`build_pyramid_plain`,
+:func:`scharr_gradients_plain`, :func:`clahe_plain`).
 """
 
 from __future__ import annotations
@@ -71,6 +74,17 @@ separable_filter_plain.cuda_runs = 0
 MAX_TAPS = 9      # csrc/separable_filter.cu's kMaxTaps (offsets within ±4)
 
 
+def _image(fn: str, img):
+    """Checks an image a launch reads: (H, W), f32, contiguous; returns
+    (H, W)."""
+    dev = device_of(img, fn)
+    check(fn, "img", img, torch.float32, dev)
+    if img.dim() != 2 or img.numel() == 0:
+        raise ValueError(f"{fn}: img must be (H, W), not "
+                         f"{tuple(img.shape)}")
+    return tuple(img.shape)
+
+
 class FilterLaunch(NamedTuple):
     """The arguments of ``separable_filter_launch`` but the output and the
     stream (the taps as ctypes arrays the call reads on the host)."""
@@ -108,16 +122,11 @@ def pack_filter(img, taps_y, taps_x, x_first: bool = False,
     dtype (f32 only), ValueError on an image that is not (H, W) and
     contiguous, more than 9 taps a pass, or a stride other than 1 or 2."""
     fn = "separable_filter"
-    dev = device_of(img, fn)
-    check(fn, "img", img, torch.float32, dev)
-    if img.dim() != 2 or img.numel() == 0:
-        raise ValueError(f"{fn}: img must be (H, W), not "
-                         f"{tuple(img.shape)}")
+    H, W = _image(fn, img)
     if stride not in (1, 2):
         raise ValueError(f"{fn}: stride {stride}; the kernel takes 1 or 2")
     ny, offy, wy = _taps(fn, "taps_y", taps_y)
     nx, offx, wx = _taps(fn, "taps_x", taps_x)
-    H, W = img.shape
     return FilterLaunch(img.data_ptr(), H, W, stride, int(bool(x_first)),
                         ny, offy, wy, nx, offx, wx)
 
@@ -162,28 +171,132 @@ def box_filter(img, size: int = 3):
     return separable_filter(img, k, k)
 
 
+SCHARR_SMOOTH = [3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0]
+SCHARR_DIFF = [-0.5, 0.0, 0.5]
+
+
+def scharr_gradients_plain(img):
+    """Scharr's two gradients in plain PyTorch: gx the y smoothing, then
+    the x difference, gy the x smoothing, then the y difference."""
+    gx = separable_filter_plain(img, SCHARR_SMOOTH, SCHARR_DIFF)
+    gy = separable_filter_plain(img, SCHARR_DIFF, SCHARR_SMOOTH,
+                                x_first=True)
+    return gx, gy
+
+
+def pack_scharr(img) -> Tuple[int, int, int]:
+    """Checks a launch of the Scharr kernel and returns its arguments but
+    the outputs and the stream (the image's pointer, H, W); raises
+    TypeError on a dtype (f32 only), ValueError on an image that is not
+    (H, W) and contiguous."""
+    H, W = _image("scharr_gradients", img)
+    return img.data_ptr(), H, W
+
+
 def scharr_gradients(img):
     """Scharr x/y gradients (OpenCV 3/10/3 kernel, scaled 1/32 so gradient
-    units stay in intensity-per-pixel). Separable: [3,10,3]/16 ⊗ [-1,0,1]/2."""
-    smooth = [3.0 / 16.0, 10.0 / 16.0, 3.0 / 16.0]
-    diff = [-0.5, 0.0, 0.5]
-    gx = separable_filter(img, smooth, diff)
-    gy = separable_filter(img, diff, smooth, x_first=True)
+    units stay in intensity-per-pixel). Separable: [3,10,3]/16 ⊗ [-1,0,1]/2.
+    CPU tensors take :func:`scharr_gradients_plain`; CUDA tensors one
+    launch for both."""
+    if device_of(img, "scharr_gradients").type == "cpu":
+        return scharr_gradients_plain(img)
+    a = pack_scharr(img)
+    gx, gy = torch.empty_like(img), torch.empty_like(img)
+    launch.run("separable_filter", (*a, gx.data_ptr(), gy.data_ptr()),
+               scharr_gradients, a[1:], img.device,
+               fn="separable_scharr_launch")
     return gx, gy
+
+
+# launches of the kernel (as separable_filter's)
+scharr_gradients.launches = 0
+scharr_gradients.shapes = collections.Counter()
+scharr_gradients.origins = collections.Counter()
+
+PYR_TAPS = np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0
 
 
 def pyr_down(img):
     """Gaussian 5-tap blur + 2x decimation (cv::pyrDown equivalent)."""
-    k = (np.array([1.0, 4.0, 6.0, 4.0, 1.0], np.float32) / 16.0)
-    return separable_filter(img, k, k, stride=2)
+    return separable_filter(img, PYR_TAPS, PYR_TAPS, stride=2)
+
+
+def build_pyramid_plain(img, levels: int) -> List[torch.Tensor]:
+    """The pyramid in plain PyTorch: each level ``pyr_down``'s plain
+    version of the one above."""
+    pyr = [img]
+    for _ in range(levels - 1):
+        pyr.append(separable_filter_plain(pyr[-1], PYR_TAPS, PYR_TAPS,
+                                          stride=2))
+    return pyr
+
+
+# levels one launch of the pyramid kernel writes (csrc/separable_filter.cu's
+# kMaxOut)
+PYR_LEVELS_PER_LAUNCH = 3
+
+
+def pyramid_plan(levels: int) -> List[Tuple[int, int]]:
+    """The pyramid kernel's launches for ``levels`` levels: (the level it
+    reads, the levels below it that it writes), each from the deepest level
+    the launch before wrote."""
+    plan, src, left = [], 0, levels - 1
+    while left > 0:
+        n = min(left, PYR_LEVELS_PER_LAUNCH)
+        plan.append((src, n))
+        src, left = src + n, left - n
+    return plan
+
+
+def pyramid_shapes(H: int, W: int, levels: int) -> List[Tuple[int, int]]:
+    """Each level's (H, W), the base first: ceil halves, as pyr_down's."""
+    shapes = [(H, W)]
+    for _ in range(levels - 1):
+        H, W = -(-H // 2), -(-W // 2)
+        shapes.append((H, W))
+    return shapes
+
+
+def pack_pyramid(img, levels: int):
+    """Checks the launches of the pyramid kernel for ``levels`` levels of
+    ``img`` and returns (the levels' shapes, :func:`pyramid_plan`); raises
+    TypeError on a dtype (f32 only) or levels that are not an int,
+    ValueError on an image that is not (H, W) and contiguous, or fewer than
+    one level."""
+    fn = "build_pyramid"
+    H, W = _image(fn, img)
+    if isinstance(levels, bool) or not isinstance(levels, (int, np.integer)):
+        raise TypeError(f"{fn}: levels must be an int")
+    if levels < 1:
+        raise ValueError(f"{fn}: {levels} levels; at least 1")
+    return pyramid_shapes(H, W, int(levels)), pyramid_plan(int(levels))
 
 
 def build_pyramid(img, levels: int) -> List[torch.Tensor]:
-    """Image pyramid, level 0 = full resolution (levels = nklt_pyr_lvl + 1)."""
-    pyr = [img]
-    for _ in range(levels - 1):
-        pyr.append(pyr_down(pyr[-1]))
+    """Image pyramid, level 0 = full resolution (levels = nklt_pyr_lvl + 1);
+    each level a contiguous tensor of its own. CPU tensors take
+    :func:`build_pyramid_plain`; CUDA tensors one launch for up to three
+    levels below the base (:func:`pyramid_plan`)."""
+    if device_of(img, "build_pyramid").type == "cpu":
+        return build_pyramid_plain(img, levels)
+    shapes, plan = pack_pyramid(img, levels)
+    pyr = [img] + [torch.empty(s, dtype=torch.float32, device=img.device)
+                   for s in shapes[1:]]
+    for src, n in plan:
+        outs = [pyr[src + k].data_ptr() for k in range(1, n + 1)]
+        outs += [None] * (PYR_LEVELS_PER_LAUNCH - n)
+        launch.run("separable_filter", (pyr[src].data_ptr(), *shapes[src],
+                                        n, *outs),
+                   build_pyramid, (*shapes[src], n), img.device,
+                   fn="separable_pyramid_launch")
     return pyr
+
+
+# launches of the kernel, how many at each (H, W, levels written) of the
+# level read, and from each (thread name, CUDA stream handle)
+build_pyramid.launches = 0
+build_pyramid.shapes = collections.Counter()
+build_pyramid.origins = collections.Counter()
 
 
 # --------------------------------------------------------------------------
@@ -262,8 +375,7 @@ def scan_log_threads(num_rows: int, row_size: int) -> int:
 
 
 class ClaheLaunch(NamedTuple):
-    """The arguments of ``clahe_launch`` but the LUT scratch, the output
-    and the stream."""
+    """The arguments of ``clahe_launch`` but the output and the stream."""
     img: int
     H: int
     W: int
@@ -284,18 +396,13 @@ def pack_clahe(img, clip_limit: float = 3.0,
     4 from 128 to 1024 (the shapes whose excess ``torch.sum`` adds in the
     order the kernel follows)."""
     fn = "clahe"
-    dev = device_of(img, fn)
-    check(fn, "img", img, torch.float32, dev)
-    if img.dim() != 2 or img.numel() == 0:
-        raise ValueError(f"{fn}: img must be (H, W), not "
-                         f"{tuple(img.shape)}")
+    H, W = _image(fn, img)
     if isinstance(clip_limit, torch.Tensor):
         raise TypeError(f"{fn}: clip_limit must be a Python number")
     ty, tx = (int(t) for t in tiles)
     if (ty < 1 or tx < 1 or ty * tx < 16 or nbins % 4
             or not 128 <= nbins <= MAX_BINS):
         raise ValueError(f"{fn}: tiles {tiles}, nbins {nbins}")
-    H, W = img.shape
     th, tw = -(-H // ty), -(-W // tx)
     # the plain version's limit, a Python float the card rounds to f32
     limit = max(clip_limit * (th * tw) / nbins, 1.0)
@@ -307,23 +414,19 @@ def pack_clahe(img, clip_limit: float = 3.0,
 def clahe(img, clip_limit: float = 3.0, tiles: Tuple[int, int] = (8, 8),
           nbins: int = 256):
     """CLAHE (see :func:`clahe_plain`). CPU tensors take the plain version;
-    CUDA tensors one launch of ``csrc/clahe.cu`` (two kernels: the tiles'
-    LUTs, then the blend)."""
+    CUDA tensors one launch of ``csrc/clahe.cu`` (one kernel: each blend
+    cell's tiles' LUTs, then its pixels)."""
     if device_of(img, "clahe").type == "cpu":
         return clahe_plain(img, clip_limit, tiles, nbins)
     a = pack_clahe(img, clip_limit, tiles, nbins)
-    dev = img.device
-    lut = torch.empty((a.ty * a.tx, a.nbins), dtype=torch.float32,
-                      device=dev)
-    out = torch.empty((a.H, a.W), dtype=torch.float32, device=dev)
-    launch.run("clahe", (*a, lut.data_ptr(), out.data_ptr()), clahe,
-               (a.H, a.W), dev)
+    out = torch.empty((a.H, a.W), dtype=torch.float32, device=img.device)
+    launch.run("clahe", (*a, out.data_ptr()), clahe, (a.H, a.W), img.device)
     return out
 
 
-# launches of the library (two kernels each; a launch inside a CUDA graph
-# counts on each replay), how many at each (H, W), and how many from each
-# (thread name, CUDA stream handle)
+# launches of the kernel (a launch inside a CUDA graph counts on each
+# replay), how many at each (H, W), and how many from each (thread name,
+# CUDA stream handle)
 clahe.launches = 0
 clahe.shapes = collections.Counter()
 clahe.origins = collections.Counter()

@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 interface, loaded with ``ctypes`` — at first use, or ahead of time with
 :func:`build_all` (one ``nvcc`` process per source, all started together).
 A library newer than its source and than every ``csrc`` header the source
-includes is reused. ptxas's resource report (registers, shared memory,
+includes is reused. Loading a library declares every launch function it
+exports (:func:`entry_points`) and runs its set-up function, if it has one
+(``_INIT``: kernel attributes such as dynamic shared memory above 48 KB). ptxas's resource report (registers, shared memory,
 spills) of each build is kept in :data:`BUILD_LOG`. Nothing here runs at
 import.
 """
@@ -76,10 +78,32 @@ _SIGNATURES = {
                           _C.c_void_p]),
     "clahe": ("clahe_launch", _C.c_int,
               [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-               _C.c_int, _C.c_float, _C.c_int, _C.c_void_p, _C.c_void_p,
-               _C.c_void_p]),
+               _C.c_int, _C.c_float, _C.c_int, _C.c_void_p, _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
+# a library's further launch functions, beside its first above
+_EXTRA_SIGNATURES = {
+    "separable_filter": {
+        "separable_pyramid_launch": (
+            _C.c_int, [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                       _C.c_void_p, _C.c_void_p, _C.c_void_p, _C.c_void_p]),
+        "separable_scharr_launch": (
+            _C.c_int, [_C.c_void_p, _C.c_int, _C.c_int, _C.c_void_p,
+                       _C.c_void_p, _C.c_void_p]),
+    },
+}
+# a library's set-up function (no arguments; a CUDA error code), called
+# once when it is loaded: the kernels' attributes, such as dynamic shared
+# memory above 48 KB, set before any launch and outside any capture
+_INIT = {"separable_filter": "separable_filter_init",
+         "clahe": "clahe_init"}
+
+
+def entry_points(name: str) -> Dict[str, tuple]:
+    """Every launch function library ``name`` exports: {C name: (restype,
+    argtypes)}, its first (``_SIGNATURES``) first."""
+    fn, restype, argtypes = _SIGNATURES[name]
+    return {fn: (restype, argtypes), **_EXTRA_SIGNATURES.get(name, {})}
 
 
 def nvcc_path() -> str:
@@ -160,9 +184,15 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             dll = ctypes.CDLL(_paths(name)[1])
-            fn_name, restype, argtypes = _SIGNATURES[name]
-            fn = getattr(dll, fn_name)
-            fn.restype = restype
-            fn.argtypes = argtypes
+            for fn_name, (restype, argtypes) in entry_points(name).items():
+                fn = getattr(dll, fn_name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            if name in _INIT:
+                init = getattr(dll, _INIT[name])
+                init.restype, init.argtypes = ctypes.c_int, []
+                rc = init()
+                if rc != 0:
+                    raise RuntimeError(f"{_INIT[name]} failed: code {rc}")
             _libs[name] = dll
         return _libs[name]

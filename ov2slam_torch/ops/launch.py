@@ -79,12 +79,13 @@ def number(fn: str, name: str, x) -> float:
     return float(x)
 
 
-def run(lib: str, args, wrapper, key, dev) -> None:
-    """Calls kernel library ``lib``'s launch function with ``args`` and the
-    current stream of ``dev``; raises if it returns an error code, and
-    counts one launch on ``wrapper`` at ``key`` (:func:`graphs.count_launch`:
-    inside a capture, at each replay)."""
-    fn_name = kernels._SIGNATURES[lib][0]
+def run(lib: str, args, wrapper, key, dev, fn: str = None) -> None:
+    """Calls kernel library ``lib``'s launch function ``fn`` (its first,
+    ``kernels._SIGNATURES``', by default) with ``args`` and the current
+    stream of ``dev``; raises if it returns an error code, and counts one
+    launch on ``wrapper`` at ``key`` (:func:`graphs.count_launch`: inside a
+    capture, at each replay)."""
+    fn_name = fn or kernels._SIGNATURES[lib][0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(kernels.load(lib), fn_name)(*args, stream)

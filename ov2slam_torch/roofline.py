@@ -353,6 +353,30 @@ def separable_filter_bound(H: int, W: int, ny: int, nx: int, stride: int):
     return _bound(2 * (ny * Ho * W + nx * Ho * Wo), 4 * (H * W + Ho * Wo))
 
 
+def pyramid_bound(H: int, W: int, levels: int):
+    """The least time of ``build_pyramid`` at ``levels`` levels of an (H,
+    W) f32 image: each level below the base a 5-tap filter of the one
+    above at stride 2 (``separable_filter_bound``'s operations); bytes of
+    the image read once and each level below it written once (a level is
+    an output, and the next level's input only on the chip). Returns ops,
+    bytes, bound_ms, bound_by."""
+    ops, px = 0, H * W
+    for _ in range(levels - 1):
+        Ho, Wo = -(-H // 2), -(-W // 2)
+        ops += 2 * (5 * Ho * W + 5 * Ho * Wo)
+        H, W = Ho, Wo
+        px += H * W
+    return _bound(ops, 4 * px)
+
+
+def scharr_pair_bound(H: int, W: int):
+    """The least time of ``scharr_gradients`` on an (H, W) f32 image: each
+    gradient a 3-tap and a 2-tap pass (the zero tap skipped) at every
+    pixel; bytes of the image read once and both gradients written once.
+    Returns ops, bytes, bound_ms, bound_by."""
+    return _bound(2 * 2 * (3 + 2) * H * W, 4 * 3 * H * W)
+
+
 # f32 operations of csrc/clahe.cu: a pixel of the padded tiles' histogram
 # (the cast, the clamp, the count); a bin's clip, excess, spread, scan sum
 # and LUT entry (the excess 3, the clipped count 2, the scan 1, the LUT 3);

@@ -287,7 +287,9 @@ def _stereo_case(dev, n=96, seed=2):
 def test_cuda_graphed_stereo_step_is_bit_equal_and_counts_klt_launches():
     """Replays equal the eager step; the capture launches no KLT kernel of
     its own, and each replay counts the one it holds, with this thread
-    and stream; a new left pyramid is copied into the graph's inputs."""
+    and stream; the graph holds one launch each of the right image's
+    pyramid, the KLT and the undistortion kernels; a new left pyramid is
+    copied into the graph's inputs."""
     import threading
 
     from ov2slam_torch.models import mapper_step
@@ -305,7 +307,8 @@ def test_cuda_graphed_stereo_step_is_bit_equal_and_counts_klt_launches():
     assert (step.eager, step.captures, step.replays) == (1, 1, 3)
     assert np.diff(counts).tolist() == [1, 1, 1, 1]
     (entry,) = step.cache.values()
-    assert len(entry["launches"]) == 1
+    assert sorted(fn.__name__ for fn, _ in entry["launches"]) == [
+        "build_pyramid", "klt_track", "undistort_points"]
     key = (threading.current_thread().name,
            torch.cuda.current_stream(dev).cuda_stream)
     assert klt.klt_track.origins[key] >= 4

@@ -1,8 +1,9 @@
 """The front end's image and camera kernels (``csrc/undistort_points.cu``,
-``csrc/separable_filter.cu``, ``csrc/clahe.cu``), their wrappers and plain
-versions (``core/camera.py``: ``undistort_points``, ``distort_points``;
-``core/image.py``: ``separable_filter`` and the filters built on it,
-``clahe``; each with its ``_plain`` form).
+``csrc/separable_filter.cu``: one image, the pyramid, Scharr's pair;
+``csrc/clahe.cu``), their wrappers and plain versions (``core/camera.py``:
+``undistort_points``, ``distort_points``; ``core/image.py``:
+``separable_filter`` and the filters built on it, ``build_pyramid``,
+``scharr_gradients``, ``clahe``; each with its ``_plain`` form).
 
 On the CPU, on images and points made from a numpy seed at 376x240 and at
 an odd 377x241 (ragged CLAHE tiles, odd pyramid levels):
@@ -19,23 +20,31 @@ an odd 377x241 (ragged CLAHE tiles, odd pyramid levels):
   pyramid, the blur, the box filter, Scharr's gradients (each pass
   order), a filter run along x first, CLAHE, and the undistortion and
   both distortion modes through a radtan and a fisheye camera;
+- the plain 4-level pyramid and Scharr pair against the JAX package's
+  ``build_pyramid`` and ``scharr_gradients`` at 376x240, 377x241 and
+  752x480 (1e-4 of 255), and the CPU wrappers equal to them bit for bit;
 - the launch packing: the taps the kernel gets (non-zero ones, in order,
   with their offsets), the clip limit in f32, the scan's threads a row as
-  ATen computes them; and its refusals: more than 9 taps, a stride other
-  than 1 or 2, an image that is not contiguous or not f32, CLAHE shapes
-  whose excess torch.sum adds in another order, points whose values are
-  not adjacent, intrinsics that are not one element;
-- ``kernels._SIGNATURES``' three entries against the exported C functions'
-  parameters in the ``.cu`` sources.
+  ATen computes them, the pyramid's launches (three levels a launch, each
+  from the deepest level the one before wrote) and ceil level shapes; and
+  its refusals: more than 9 taps, a stride other than 1 or 2, an image
+  that is not contiguous or not f32, CLAHE shapes whose excess torch.sum
+  adds in another order, pyramid levels that are not a positive int,
+  points whose values are not adjacent, intrinsics that are not one
+  element;
+- every launch function of the three libraries (``kernels.entry_points``)
+  against the exported C function's parameters in the ``.cu`` source.
 
 On the card (skipped without one, decided inside the test; the fixtures are
-``chip_smoke.image_cases``'): every output of the three kernels bit-equal
-to its plain version on the card, and a second launch to the first, at
-752x480, 376x240, 1241x376, 640x480 and 377x241 (radtan and fisheye
-points; CLAHE at clip 3 and at 2.7, whose limit's fractional bits make
-the excess sum's order count at 1241x376 and 377x241); a CUDA-graph
-replay of CLAHE, the pyramid, Scharr's gradients and the undistortion
-bit-equal to the eager call, its launches counted at each replay; an f64 CUDA tensor refused with TypeError by each wrapper. The file
+``chip_smoke.image_cases``'): every output of the kernels bit-equal to its
+plain version on the card, and a second launch to the first, at 752x480,
+376x240, 1241x376, 640x480 and 377x241 (radtan and fisheye points; CLAHE
+at clip 3 and at 2.7, whose limit's fractional bits make the excess sum's
+order count at 1241x376 and 377x241; the pyramid at 4 levels, one launch,
+and at 6, two; two filters in the kernel's generic form); a CUDA-graph replay of CLAHE, the pyramid, Scharr's
+gradients and the undistortion bit-equal to the eager call, its launches
+counted at each replay (one a call each); an f64 CUDA tensor refused with
+TypeError by each wrapper. The file
 imports no JAX at module level: on the card ``python -m pytest
 --noconftest tests/test_torch_image_kernels.py`` runs it (the tests that
 hold the JAX package skip there).
@@ -179,6 +188,38 @@ def test_filters_match_jax(size, what):
         np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4)
 
 
+PLAIN_SIZES = ((376, 240), (377, 241), (752, 480))
+
+
+@pytest.mark.parametrize("what", ["pyramid", "scharr"])
+@pytest.mark.parametrize("size", PLAIN_SIZES,
+                         ids=[f"{w}x{h}" for w, h in PLAIN_SIZES])
+def test_pyramid_and_scharr_plain_match_jax(size, what):
+    # the plain versions the kernels are held to on the card: the same
+    # taps in the same order as the JAX package's, f32 round-off only
+    # (1e-4 on 0..255); the CPU wrappers are the plain versions
+    _jax()
+    import jax.numpy as jnp
+
+    from ov2slam_tpu.core import image as jimg
+
+    x = chip_smoke.image_fixture(*size, seed=2)
+    j, t = jnp.asarray(x), torch.as_tensor(x)
+    if what == "pyramid":
+        ours = im.build_pyramid_plain(t, 4)
+        theirs = jimg.build_pyramid(j, 4)
+        assert [tuple(p.shape) for p in ours] == im.pyramid_shapes(
+            size[1], size[0], 4) == [p.shape for p in theirs]
+        wrapped = im.build_pyramid(t, 4)
+    else:
+        ours = im.scharr_gradients_plain(t)
+        theirs = jimg.scharr_gradients(j)
+        wrapped = im.scharr_gradients(t)
+    assert all(_bits_equal(a, b) for a, b in zip(wrapped, ours, strict=True))
+    for a, b in zip(theirs, ours, strict=True):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-4)
+
+
 @pytest.mark.parametrize("clip", [2.0, 3.0])
 @pytest.mark.parametrize("size", SIZES, ids=["376x240", "377x241"])
 def test_clahe_matches_jax(size, clip):
@@ -244,6 +285,37 @@ def test_pack_filter_takes_the_nonzero_taps_in_order():
     assert list(a.wy[:9]) == list(g) and a.ny == 9
 
 
+def test_pyramid_plan_chains_three_levels_a_launch():
+    # each launch writes at most three levels, reading the deepest level
+    # the launch before wrote
+    assert [im.pyramid_plan(n) for n in (1, 2, 3, 4, 5, 7, 8)] == [
+        [], [(0, 1)], [(0, 2)], [(0, 3)], [(0, 3), (3, 1)],
+        [(0, 3), (3, 3)], [(0, 3), (3, 3), (6, 1)]]
+    # the kernel's own limit
+    with open(os.path.join(kernels.CSRC, "separable_filter.cu")) as f:
+        m = re.search(r"constexpr int kMaxOut = (\d+);", f.read())
+    assert int(m.group(1)) == im.PYR_LEVELS_PER_LAUNCH
+
+
+def test_pyramid_shapes_are_ceil_halves():
+    assert im.pyramid_shapes(241, 377, 6) == [
+        (241, 377), (121, 189), (61, 95), (31, 48), (16, 24), (8, 12)]
+    assert im.pyramid_shapes(480, 752, 4) == [
+        (480, 752), (240, 376), (120, 188), (60, 94)]
+    shapes, plan = im.pack_pyramid(_img((377, 241)), 6)
+    assert shapes == im.pyramid_shapes(241, 377, 6)
+    assert plan == [(0, 3), (3, 2)]
+    # the plain pyramid keeps the same shapes, deep and odd
+    pyr = im.build_pyramid_plain(_img((377, 241)), 6)
+    assert [tuple(p.shape) for p in pyr] == shapes
+    assert all(p.is_contiguous() for p in pyr)
+
+
+def test_pack_scharr_takes_the_image_in_place():
+    img = _img((377, 241))
+    assert im.pack_scharr(img) == (img.data_ptr(), 241, 377)
+
+
 def test_pack_clahe_rounds_the_limit_and_takes_torch_scan_threads():
     a = im.pack_clahe(_img((752, 480)), 3.0)
     # 60 x 94 pixels a tile: 3 * 5640 / 256 = 66.09375, exact in f32
@@ -272,6 +344,22 @@ def _refuse(kind):
         return lambda: im.pack_filter(img.double(), PYR, PYR)
     if kind == "image_3d":
         return lambda: im.pack_filter(img[None], PYR, PYR)
+    if kind == "pyramid_not_contiguous":
+        return lambda: im.pack_pyramid(img.t(), 4)
+    if kind == "pyramid_f64":
+        return lambda: im.pack_pyramid(img.double(), 4)
+    if kind == "pyramid_3d":
+        return lambda: im.pack_pyramid(img[None], 4)
+    if kind == "pyramid_no_levels":
+        return lambda: im.pack_pyramid(img, 0)
+    if kind == "pyramid_levels_float":
+        return lambda: im.pack_pyramid(img, 4.0)
+    if kind == "scharr_not_contiguous":
+        return lambda: im.pack_scharr(img[:, ::2])
+    if kind == "scharr_f64":
+        return lambda: im.pack_scharr(img.double())
+    if kind == "scharr_3d":
+        return lambda: im.pack_scharr(img[None])
     if kind == "clahe_not_contiguous":
         return lambda: im.pack_clahe(img[:, ::2])
     if kind == "clahe_f64":
@@ -303,7 +391,11 @@ def _refuse(kind):
 @pytest.mark.parametrize("kind,exc", [
     ("ten_taps", ValueError), ("stride_3", ValueError),
     ("image_not_contiguous", ValueError), ("image_f64", TypeError),
-    ("image_3d", ValueError), ("clahe_not_contiguous", ValueError),
+    ("image_3d", ValueError), ("pyramid_not_contiguous", ValueError),
+    ("pyramid_f64", TypeError), ("pyramid_3d", ValueError),
+    ("pyramid_no_levels", ValueError), ("pyramid_levels_float", TypeError),
+    ("scharr_not_contiguous", ValueError), ("scharr_f64", TypeError),
+    ("scharr_3d", ValueError), ("clahe_not_contiguous", ValueError),
     ("clahe_f64", TypeError), ("clahe_bins", ValueError),
     ("clahe_few_bins", ValueError), ("clahe_bins_not_4k", ValueError),
     ("clahe_few_tiles", ValueError),
@@ -330,12 +422,11 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "int": ctypes.c_int, "float": ctypes.c_float}
 
 
-def _c_params(lib):
-    """The C types of the exported launch function's parameters, from
-    ``csrc/<lib>.cu``."""
+def _c_params(lib, fn):
+    """The C types of the exported launch function ``fn``'s parameters,
+    from ``csrc/<lib>.cu``."""
     with open(os.path.join(kernels.CSRC, f"{lib}.cu")) as f:
         text = f.read()
-    fn = kernels._SIGNATURES[lib][0]
     m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
     assert m, fn
     out = []
@@ -348,12 +439,30 @@ def _c_params(lib):
     return out
 
 
-@pytest.mark.parametrize("lib", ["undistort_points", "separable_filter",
-                                 "clahe"])
-def test_signatures_match_the_c_sources(lib):
-    fn, restype, argtypes = kernels._SIGNATURES[lib]
+ENTRY_POINTS = [(lib, fn) for lib in ("undistort_points", "separable_filter",
+                                      "clahe")
+                for fn in kernels.entry_points(lib)]
+
+
+@pytest.mark.parametrize("lib,fn", ENTRY_POINTS,
+                         ids=[fn for _, fn in ENTRY_POINTS])
+def test_signatures_match_the_c_sources(lib, fn):
+    restype, argtypes = kernels.entry_points(lib)[fn]
     assert restype is ctypes.c_int and lib in kernels.KERNELS
-    assert argtypes == _c_params(lib)
+    assert argtypes == _c_params(lib, fn)
+
+
+def test_every_launch_function_is_registered():
+    # each extern "C" launch function of the three sources has its
+    # signature, and each set-up function its entry
+    for lib in ("undistort_points", "separable_filter", "clahe"):
+        with open(os.path.join(kernels.CSRC, f"{lib}.cu")) as f:
+            text = f.read()
+        exported = set(re.findall(r'extern "C" int (\w+)\(', text))
+        launches = {n for n in exported if n.endswith("_launch")}
+        assert launches == set(kernels.entry_points(lib))
+        assert exported - launches == (
+            {kernels._INIT[lib]} if lib in kernels._INIT else set())
 
 
 @pytest.mark.parametrize("fn,figures", [
@@ -361,8 +470,18 @@ def test_signatures_match_the_c_sources(lib):
      (135168, 8224, "bytes")),
     (lambda r: r.separable_filter_bound(480, 752, 5, 5, 2),
      (2707200, 1804800, "bytes")),
-    (lambda r: r.clahe_bound(480, 752), (12420096, 2887680, "bytes"))],
-    ids=["undistort_points", "separable_filter", "clahe"])
+    (lambda r: r.clahe_bound(480, 752), (12420096, 2887680, "bytes")),
+    # three levels: 2 (5 Ho W + 5 Ho Wo) each; the image read once and
+    # each level written once
+    (lambda r: r.pyramid_bound(480, 752, 4),
+     (2707200 + 676800 + 169200, 4 * (360960 + 90240 + 22560 + 5640),
+      "bytes")),
+    # both gradients: a 3-tap and a 2-tap pass each at every pixel; the
+    # image read once and both gradients written once
+    (lambda r: r.scharr_pair_bound(480, 752),
+     (20 * 360960, 12 * 360960, "bytes"))],
+    ids=["undistort_points", "separable_filter", "clahe", "pyramid",
+         "scharr_pair"])
 def test_roofline_bounds(fn, figures):
     from ov2slam_torch import roofline
 
@@ -388,9 +507,9 @@ def test_cuda_kernels_bit_equal_to_plain(size):
     digests, errs = {}, {}
     held = chip_smoke.image_check(
         chip_smoke.image_cases(f"{size}", img, dev), digests, errs)
-    assert held == 17 and len(digests) == 14
-    assert errs == dict(clahe=0.0, separable_filter=0.0,
-                        undistort_points=0.0)
+    assert held == 25 and len(digests) == 18
+    assert errs == dict(clahe=0.0, separable_filter=0.0, build_pyramid=0.0,
+                        scharr_gradients=0.0, undistort_points=0.0)
 
 
 def test_cuda_graph_replay_equals_eager_and_counts_launches():
@@ -412,7 +531,8 @@ def test_cuda_graph_replay_equals_eager_and_counts_launches():
     for a in args[:2]:
         g(*a)
     assert (g.eager, g.captures) == (1, 1)
-    fns = (im.clahe, im.separable_filter, cm.undistort_points)
+    fns = (im.clahe, im.separable_filter, im.build_pyramid,
+           im.scharr_gradients, cm.undistort_points)
     n0 = [f.launches for f in fns]
     r0 = g.replays
     for a in args[::-1]:
@@ -420,9 +540,10 @@ def test_cuda_graph_replay_equals_eager_and_counts_launches():
         ref = step(*a)
         torch.cuda.synchronize()
         assert all(_bits_equal(x.cpu(), y.cpu()) for x, y in zip(out, ref))
-    # three replays and three eager calls: CLAHE 1, filters 5, points 1
+    # three replays and three eager calls: CLAHE 1, the one-image filter
+    # 0, the pyramid 1, Scharr's pair 1, points 1
     assert g.replays - r0 == 3
-    assert [f.launches - n for f, n in zip(fns, n0)] == [6, 30, 6]
+    assert [f.launches - n for f, n in zip(fns, n0)] == [6, 0, 6, 6, 6]
 
 
 def test_cuda_f64_raises_type_error():
@@ -431,6 +552,7 @@ def test_cuda_f64_raises_type_error():
     px = torch.zeros((8, 2), dtype=torch.float64, device=dev)
     c = _cam("radtan", dev)
     for run in (lambda: im.clahe(img), lambda: im.pyr_down(img),
+                lambda: im.build_pyramid(img, 4),
                 lambda: im.scharr_gradients(img),
                 lambda: cm.undistort_points(px, *c),
                 lambda: cm.distort_points(px, *c)):

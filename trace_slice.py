@@ -18,20 +18,22 @@ loopclosure or mapping packages, the outermost one when they nest;
 the loop closer's keyframe step, and the rest of ``process_frame``) are
 traced as scopes of their own, "(trace) Class.method", so that no launch
 falls outside every scope; the port's ``Profiler`` has no scope there, as the
-JAX package has none. A hand kernel launched inside a CUDA graph runs on
-the graph's replays: its device events there are counted from the trace
-(``in_graph_replays``), not by :class:`HandKernelTimer`. While traced,
-each scope and each such function, as the models modules hold it, runs
-inside a ``record_function`` range; each device event is charged to the
-ranges around the runtime call that launched it. The trace holds the
-device events of only some of the hand kernels' ctypes launches, so those
-are counted apart (:class:`HandKernelTimer`): each launch call of a
-``csrc`` library runs between two CUDA events on its stream and is charged
-to the scope and port function open around it, with the kernels it
-launches (one each); their device events in the trace are left out of
-the totals and the groups. The line's ``hand_kernels`` gives each hand
-kernel's launches and device ms per frame so measured, beside the device
-events the trace holds.
+JAX package has none. While traced, each scope and each such function, as
+the models modules hold it, runs inside a ``record_function`` range; each
+device event is charged to the ranges around the runtime call that
+launched it, the hand kernels' (``csrc``, launched through ctypes) as
+every other kernel's: their device ms are their device events' time, and
+their launch calls are counted once, as the trace's runtime calls. A hand
+kernel launched inside a CUDA graph runs on the graph's replays, where the
+trace holds its device events (``in_graph_replays``).
+:class:`HandKernelTimer` counts each call of each hand-kernel library's
+launch functions (no timing) and reads the wrappers' ``.launches``
+counters over the same frames; the line's ``hand_kernels`` gives, for each
+library, the launch calls, the wrappers' launches, and the trace's
+kernels, device ms and runtime calls a frame, and ``hand_kernel_check``
+whether they agree: the trace's kernels equal to the wrappers' launches
+times the kernels a launch starts, and the trace's runtime launch calls of
+hand kernels equal to the kernels of the counted launch calls.
 
 Slices E and F: runs ``chip_smoke.run_async_slice`` (``AsyncSlamManager``,
 the front end on the calling thread, keyframes on the ``kf-worker`` thread
@@ -43,9 +45,9 @@ thread, from which each thread's launches are counted), and is started
 once before the slice so that CUPTI's set-up falls outside the window;
 the time it takes to start and stop is taken out of ``chip_smoke``'s
 clock, so that slice F's pacing does not count it as the system's. The
-hand kernels' launches in the window are timed with CUDA events as for
-A and B; the idle share is given from the trace's device events and again
-with the hand kernels' untraced device time counted busy. The
+hand kernels' launch calls in the window are counted as for A and B, and
+their device events are the trace's; the idle share is given from the
+trace's device events (the hand kernels' among them). The
 waits of both threads (the in-flight frame's readback, the keyframe
 backpressure condition, the map lock) and the ``Profiler`` scopes are
 recorded beside the trace. The JSON line adds the device's idle share
@@ -146,17 +148,16 @@ def main(argv) -> int:
         wall = time.perf_counter() - t0
 
     events = prof.events()
-    n_kernels, busy_us, top = kernel_table(events, args.top, hand=False)
-    groups = kernel_groups(events, scopes)
-    hand_n, hand_us = hand.merge_into(groups)
-    traced = hand_events(events)
+    n_kernels, busy_us, top = kernel_table(events, args.top)
+    groups, by_order = kernel_groups(events, scopes, hand)
+    hand_rows = hand.per_frame(args.frames, hand_events(events))
     print(json.dumps(dict(
         slice=args.slice, device=torch.cuda.get_device_name(0),
         frames=args.frames, keyframes=int(slam.map._kf_seq_counter),
-        wall_s=wall, kernel_time_s=(busy_us + hand_us) * 1e-6,
-        busy_share=(busy_us + hand_us) * 1e-6 / wall,
-        kernel_launches=n_kernels + hand_n,
-        launches_per_frame=(n_kernels + hand_n) / args.frames,
+        wall_s=wall, kernel_time_s=busy_us * 1e-6,
+        busy_share=busy_us * 1e-6 / wall,
+        kernel_launches=n_kernels,
+        launches_per_frame=n_kernels / args.frames,
         top_kernels=[dict(name=k[:80], launches=n, device_ms=t * 1e-3)
                      for k, n, t in top],
         **{f"per_frame_by_{how}": per_frame(g, args.frames)
@@ -164,15 +165,15 @@ def main(argv) -> int:
         **{f"host_calls_per_frame_by_{how}": {
             k: n / args.frames for k, n in sorted(g.items(),
                                                   key=lambda kv: -kv[1])}
-           for how, g in host_call_groups(events, scopes, hand).items()},
-        hand_kernels=hand.per_frame(args.frames, traced),
+           for how, g in host_call_groups(events, scopes).items()},
+        hand_kernels=hand_rows, hand_kernel_check=hand_check(hand_rows),
+        hand_kernels_grouped_by_order=by_order,
         host_calls_per_frame=runtime_calls(events, args.frames))),
         flush=True)
     return 0
 
 
-# the hand kernels of each csrc library, and the kernels one launch call
-# starts
+# the hand kernels of each csrc library
 HAND_KERNELS = {
     "klt_track": ("klt_kernel",),
     "essential_ransac": ("essential_ransac_kernel",),
@@ -181,9 +182,43 @@ HAND_KERNELS = {
     "ba_normal_eq": ("ba_rows_kernel", "ba_sums_kernel"),
     "ba_schur_step": ("schur_prepare_kernel", "schur_step_kernel"),
     "undistort_points": ("undistort_points_kernel",),
-    "separable_filter": ("separable_filter_kernel",),
-    "clahe": ("clahe_lut_kernel", "clahe_apply_kernel"),
+    "separable_filter": ("filter_kernel", "pyramid_kernel", "scharr_kernel"),
+    "clahe": ("clahe_kernel",),
 }
+# the wrappers that count each library's launches: (the module under
+# ov2slam_torch, its wrappers' names)
+HAND_WRAPPERS = {
+    "klt_track": ("ops.klt", ("klt_track",)),
+    "essential_ransac": ("geometry.essential", ("essential_ransac",)),
+    "pnp_refine": ("solvers.pnp_refine", ("pnp_refine",)),
+    "hamming_score": ("ops.hamming", ("match_scores_bits",)),
+    "ba_normal_eq": ("solvers.ba_invdepth", ("normal_equations",
+                                             "lm_accept")),
+    "ba_schur_step": ("solvers.ba_invdepth", ("schur_step",)),
+    "undistort_points": ("core.camera", ("undistort_points",)),
+    "separable_filter": ("core.image", ("separable_filter", "build_pyramid",
+                                        "scharr_gradients")),
+    "clahe": ("core.image", ("clahe",)),
+}
+
+
+def kernels_per_launch(lib: str) -> int:
+    """Kernels one call of library ``lib``'s launch functions starts."""
+    from ov2slam_torch.solvers import ba_invdepth
+
+    return ba_invdepth.KERNELS_PER_LAUNCH.get(lib, 1)
+
+
+def wrapper_launches():
+    """{library: the launches its wrappers have counted} (a launch inside
+    a CUDA graph counts at each replay)."""
+    import importlib
+
+    out = {}
+    for lib, (mod, names) in HAND_WRAPPERS.items():
+        m = importlib.import_module(f"ov2slam_torch.{mod}")
+        out[lib] = sum(getattr(getattr(m, n), "launches", 0) for n in names)
+    return out
 # a kernel's name, demangled or mangled (after its length), not inside a
 # longer identifier
 _HAND_RE = re.compile(r"(?<![A-Za-z_])(" + "|".join(
@@ -208,28 +243,39 @@ def hand_kernel_of(name: str):
 
 
 def hand_events(events):
-    """Device events of each hand kernel library that a trace holds, and
-    (library: (events, µs)) of those a CUDA graph's replay ran."""
+    """{library: {"kernels", "us", "runtime_calls", "in_graph",
+    "in_graph_us"}} of the hand kernels' device events a trace holds: all
+    of them and their device µs, the eager ones whose runtime launch call
+    the trace holds (joined by correlation id), and those a CUDA graph's
+    replay ran."""
     import torch
 
     graphed = graph_kernel_ids(events)
-    out, replayed = {}, {}
+    calls = {e.id for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name in LAUNCHES and e.name not in GRAPH_LAUNCHES}
+    out = {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             lib = hand_kernel_of(e.name)
-            if lib is not None:
-                out[lib] = out.get(lib, 0) + 1
-                if e.id in graphed:
-                    n, t = replayed.get(lib, (0, 0.0))
-                    replayed[lib] = (n + 1, t + e.time_range.elapsed_us())
-    return out, replayed
+            if lib is None:
+                continue
+            us = e.time_range.elapsed_us()
+            r = out.setdefault(lib, dict(kernels=0, us=0.0, runtime_calls=0,
+                                         in_graph=0, in_graph_us=0.0))
+            r["kernels"] += 1
+            r["us"] += us
+            if e.id in graphed:
+                r["in_graph"] += 1
+                r["in_graph_us"] += us
+            elif e.id in calls:
+                r["runtime_calls"] += 1
+    return out
 
 
 def graph_kernel_ids(events):
     """Correlation ids of the device events that a CUDA graph's replay
-    ran (their runtime call is a graph launch). The hand kernels among
-    them are left in the trace's totals: :class:`HandKernelTimer` does not
-    time a launch captured into a graph."""
+    ran (their runtime call is a graph launch)."""
     import torch
 
     return {e.id for e in events
@@ -238,100 +284,127 @@ def graph_kernel_ids(events):
 
 
 class HandKernelTimer:
-    """While entered and ``active``: every launch call of a hand-kernel
-    library (``kernels._SIGNATURES``) runs between two CUDA events on the
-    current stream (the one the wrappers launch on), and is recorded with
-    the kernels it starts and the ``Profiler`` scope and port function open
-    around it on its thread (the innermost scope, the outermost function;
-    see :class:`scoped_ranges`)."""
+    """While entered and ``active``: every launch function of every
+    hand-kernel library (``kernels.entry_points``) is wrapped, so that each
+    call outside a capture is counted once, with the kernels it starts
+    (:func:`kernels_per_launch`) and the ``Profiler`` scope and port
+    function open around it on its thread (the innermost scope, the
+    outermost function; see :class:`scoped_ranges`). It times nothing: the
+    hand kernels' device time is their device events' in the trace, as
+    every other kernel's (:func:`kernel_groups`). While active it also
+    reads the wrappers' ``.launches`` counters (:func:`wrapper_launches`),
+    to hold the trace's counts against."""
 
     def __init__(self):
-        self.active = True
-        self.rows = []
+        self._active = False
+        self.rows = []            # (library, kernels, scope, function)
+        self.wrapper_delta = {}
+        self._w0 = {}
         self._saved = []
         self._lock = threading.Lock()
+        self.active = True
+
+    @property
+    def active(self) -> bool:
+        return self._active
+
+    @active.setter
+    def active(self, on: bool) -> None:
+        if on and not self._active:
+            self._w0 = wrapper_launches()
+        elif self._active and not on:
+            for lib, n in wrapper_launches().items():
+                self.wrapper_delta[lib] = (self.wrapper_delta.get(lib, 0)
+                                           + n - self._w0[lib])
+        self._active = on
 
     def __enter__(self):
         from ov2slam_torch import kernels
 
         kernels.build_all(HAND_KERNELS)
-        for name, ks in HAND_KERNELS.items():
+        for name in HAND_KERNELS:
             lib = kernels.load(name)
-            fn_name = kernels._SIGNATURES[name][0]
-            orig = getattr(lib, fn_name)
-            setattr(lib, fn_name, self._timed(name, len(ks), orig))
-            self._saved.append((lib, fn_name, orig))
+            for fn_name in kernels.entry_points(name):
+                orig = getattr(lib, fn_name)
+                setattr(lib, fn_name, self._counted(name, orig))
+                self._saved.append((lib, fn_name, orig))
         return self
 
     def __exit__(self, *exc):
+        self.active = False
         for lib, fn_name, orig in self._saved:
             setattr(lib, fn_name, orig)
 
-    def _timed(self, name, n_kernels, orig):
+    def _counted(self, name, orig):
         import torch
+
+        n_kernels = kernels_per_launch(name)
 
         def call(*args):
             # a launch into a graph being captured runs on its replays,
-            # where the trace holds it (kernel_groups)
-            if not self.active or torch.cuda.is_current_stream_capturing():
-                return orig(*args)
-            stack = _open_stack()
-            scope = next((v for k, v in reversed(stack) if k == "scope"),
-                         "(none)")
-            fn = next((v for k, v in stack if k == "fn"),
-                      f"(models: {scope})")
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            rc = orig(*args)
-            e.record()
-            with self._lock:
-                self.rows.append((name, n_kernels, scope, fn, s, e))
-            return rc
+            # where the trace holds it
+            if self._active and not torch.cuda.is_current_stream_capturing():
+                stack = _open_stack()
+                scope = next((v for k, v in reversed(stack)
+                              if k == "scope"), "(none)")
+                fn = next((v for k, v in stack if k == "fn"),
+                          f"(models: {scope})")
+                with self._lock:
+                    self.rows.append((name, n_kernels, scope, fn))
+            return orig(*args)
         return call
 
-    def totals(self):
-        """{library: (kernels, device µs)} and {"scope"|"function": {key:
-        (kernels, µs)}} of the recorded launches (synchronizes)."""
-        import torch
-
-        torch.cuda.synchronize()
-        by_lib, groups = {}, {"scope": {}, "function": {}}
-        for name, n, scope, fn, s, e in self.rows:
-            us = 1e3 * s.elapsed_time(e)
-            for d, key in ((by_lib, name), (groups["scope"], scope),
-                           (groups["function"], fn)):
-                c, t = d.get(key, (0, 0.0))
-                d[key] = (c + n, t + us)
-        return by_lib, groups
-
-    def merge_into(self, groups):
-        """Adds the recorded launches to :func:`kernel_groups`' groups;
-        returns their kernels and device µs."""
-        by_lib, mine = self.totals()
-        for how, g in mine.items():
-            for key, (n, t) in g.items():
-                c0, t0 = groups[how].get(key, (0, 0.0))
-                groups[how][key] = (c0 + n, t0 + t)
-        return (sum(n for n, _ in by_lib.values()),
-                sum(t for _, t in by_lib.values()))
-
     def per_frame(self, frames: int, traced):
-        """Each library's timed launches and device ms a frame, the device
-        events the trace holds, and the launches graph replays ran (from
-        the trace: ``traced`` is :func:`hand_events`' pair)."""
-        by_lib, _ = self.totals()
-        seen, replayed = traced
+        """Each library's figures a frame: ``launch_calls`` (the calls of
+        its launch functions, counted here) and the kernels they start,
+        ``wrapper_launches`` (its wrappers' counters over the same frames:
+        launches in graph replays too), and from the trace (``traced``:
+        :func:`hand_events`) its kernels, their device ms, the runtime
+        launch calls joined to the eager ones, and the kernels and device
+        ms of graph replays; plus the totals (not a frame's) that
+        :func:`hand_check` compares."""
+        calls = {}
+        for name, n, _, _ in self.rows:
+            c, k = calls.get(name, (0, 0))
+            calls[name] = (c + 1, k + n)
         out = {}
-        for name in sorted(set(by_lib) | set(replayed)):
-            n, t = by_lib.get(name, (0, 0.0))
-            g, gt = replayed.get(name, (0, 0.0))
-            out[name] = dict(launches=n / frames,
-                             device_ms=1e-3 * t / frames,
-                             traced_device_events=seen.get(name, 0) / frames,
-                             in_graph_replays=g / frames,
-                             in_graph_device_ms=1e-3 * gt / frames)
+        for name in sorted(set(calls) | set(traced)
+                           | {k for k, v in self.wrapper_delta.items()
+                              if v}):
+            c, k = calls.get(name, (0, 0))
+            t = traced.get(name, dict(kernels=0, us=0.0, runtime_calls=0,
+                                      in_graph=0, in_graph_us=0.0))
+            w = self.wrapper_delta.get(name, 0)
+            out[name] = dict(
+                launch_calls=c / frames, launched_kernels=k / frames,
+                wrapper_launches=w / frames,
+                kernels=t["kernels"] / frames,
+                device_ms=1e-3 * t["us"] / frames,
+                runtime_calls=t["runtime_calls"] / frames,
+                in_graph_replays=t["in_graph"] / frames,
+                in_graph_device_ms=1e-3 * t["in_graph_us"] / frames,
+                totals=dict(launch_calls=c, launched_kernels=k,
+                            wrapper_launches=w, kernels=t["kernels"],
+                            runtime_calls=t["runtime_calls"],
+                            in_graph=t["in_graph"],
+                            kernels_per_launch=kernels_per_launch(name)))
         return out
+
+
+def hand_check(rows):
+    """{library: ok} and "all": the trace's hand kernels equal to the
+    wrappers' launches times the kernels a launch starts, and the trace's
+    runtime launch calls of eager hand kernels equal to the kernels of the
+    launch calls :class:`HandKernelTimer` counted (each launch counted
+    once, in the trace)."""
+    out = {}
+    for name, r in rows.items():
+        t = r["totals"]
+        out[name] = (t["kernels"] == t["wrapper_launches"]
+                     * t["kernels_per_launch"]
+                     and t["runtime_calls"] == t["launched_kernels"])
+    out["all"] = all(out.values())
+    return out
 
 
 # the packages whose functions the models layer calls: a kernel launched
@@ -484,40 +557,49 @@ def _group_keys(call, scopes):
     return scope, fn or f"(models: {scope})"
 
 
-def kernel_groups(events, scopes):
+def kernel_groups(events, scopes, hand=None):
     """Kernel launches and device µs grouped by ``Profiler`` scope (the
     innermost one open at the launch, "(none)" outside every scope) and by
-    port function (see the module docstring). Each device event is joined
-    to the runtime call that launched it (same correlation id), and that
-    call's enclosing CPU events name the groups; device events whose call
-    the trace lacks are "(unattributed)". Hand kernels' device events are
-    left out (:class:`HandKernelTimer` counts them), but for those a graph
-    replay ran."""
+    port function (see the module docstring), the hand kernels' among
+    them; and the number of hand kernels grouped by order. Each device
+    event is joined to the runtime call that launched it (same correlation
+    id), and that call's enclosing CPU events name the groups. An eager
+    hand kernel whose runtime call the trace lacks takes, in the order of
+    its library's device events, the scope and function of the next
+    launch call ``hand`` (:class:`HandKernelTimer`) counted for its
+    library; other device events whose call the trace lacks are
+    "(unattributed)"."""
     import torch
 
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     calls = {e.id: e for e in events
              if e.device_type == cpu and e.name in LAUNCHES}
+    rows = {}
+    for name, n, scope, fn in (hand.rows if hand is not None else ()):
+        rows.setdefault(name, []).extend([(scope, fn)] * n)
+    taken = {}
     out = {"scope": {}, "function": {}}
-    for d in events:
-        if d.device_type != cuda or getattr(d, "is_user_annotation", False):
-            continue
-        if hand_kernel_of(d.name) is not None and (
-                calls.get(d.id) is None
-                or calls[d.id].name not in GRAPH_LAUNCHES):
-            continue          # counted by HandKernelTimer
-        scope, fn = _group_keys(calls.get(d.id), scopes)
+    devs = sorted((d for d in events if d.device_type == cuda
+                   and not getattr(d, "is_user_annotation", False)),
+                  key=lambda d: d.time_range.start)
+    for d in devs:
+        call = calls.get(d.id)
+        lib = hand_kernel_of(d.name) if call is None else None
+        if lib is not None and taken.get(lib, 0) < len(rows.get(lib, ())):
+            scope, fn = rows[lib][taken.get(lib, 0)]
+            taken[lib] = taken.get(lib, 0) + 1
+        else:
+            scope, fn = _group_keys(call, scopes)
         for how, key in (("scope", scope), ("function", fn)):
             c, t = out[how].get(key, (0, 0.0))
             out[how][key] = (c + 1, t + d.time_range.elapsed_us())
-    return out
+    return out, sum(taken.values())
 
 
-def host_call_groups(events, scopes, hand):
-    """The host's launch calls (``LAUNCHES``; a CUDA graph's replay is one)
-    grouped as :func:`kernel_groups` groups kernels, with the hand
-    kernels' launches from ``hand`` (:class:`HandKernelTimer`, one call a
-    kernel)."""
+def host_call_groups(events, scopes):
+    """The host's launch calls (``LAUNCHES``; a CUDA graph's replay is one,
+    a hand kernel's launch one) grouped as :func:`kernel_groups` groups
+    kernels."""
     import torch
 
     out = {"scope": {}, "function": {}}
@@ -527,17 +609,14 @@ def host_call_groups(events, scopes, hand):
             for how, key in zip(("scope", "function"),
                                 _group_keys(e, scopes)):
                 out[how][key] = out[how].get(key, 0) + 1
-    for how, g in hand.totals()[1].items():
-        for key, (n, _) in g.items():
-            out[how][key] = out[how].get(key, 0) + n
     return out
 
 
 def runtime_calls(events, frames: int):
     """The host's calls a frame that put work on a stream (``LAUNCHES``:
     a CUDA graph's replay is one ``cudaGraphLaunch`` however many kernels
-    it holds), by name; the hand kernels' ctypes launches are not in the
-    trace and are counted by :class:`HandKernelTimer`."""
+    it holds; a hand kernel's ctypes launch is its runtime call), by
+    name."""
     import torch
 
     out = {}
@@ -554,27 +633,18 @@ def per_frame(group, frames: int):
             for k, (n, t) in sorted(group.items(), key=lambda kv: -kv[1][1])}
 
 
-def kernel_table(events, top: int, hand: bool = True):
+def kernel_table(events, top: int):
     """(count, device µs, the ``top`` kernels by device time as (name,
-    launches, µs)) of a profiler's events; without ``hand``, the hand
-    kernels' events are left out (:class:`HandKernelTimer` counts them)
-    but for those a graph replay ran."""
+    launches, µs)) of a profiler's events."""
     import torch
 
     # kernels appear either as CUDA-typed events or attached to the CPU
     # ops that launched them, depending on the profiler build
-    graphed = graph_kernel_ids(events)
-    kernels = [(e.name, e.time_range.elapsed_us(), e.id in graphed)
-               for e in events
+    kernels = [(e.name, e.time_range.elapsed_us()) for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        kernels = [(k.name, k.duration, False) for e in events
-                   for k in e.kernels]
-    if not hand:
-        kernels = [k for k in kernels
-                   if k[2] or hand_kernel_of(k[0]) is None]
-    kernels = [k[:2] for k in kernels]
+        kernels = [(k.name, k.duration) for e in events for k in e.kernels]
     by_name = {}
     for name, t_us in kernels:
         n, t = by_name.get(name, (0, 0.0))
@@ -969,21 +1039,22 @@ def trace_async(name: str, warmup: int, frames: int, top: int, dev):
             k = f"{who}: {lab}"
             lock_in[k] = lock_in.get(k, 0.0) + t
     top_k = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:top]
+    # the hand kernels' device events in the window (runtime calls are not
+    # joined here: the window's events are the chrome trace's)
     traced = {}
     for a, b, cat, stream, nm in dev_ev:
         lib = hand_kernel_of(nm)
         if lib is not None and w0 <= a < w1:
-            traced[lib] = traced.get(lib, 0) + 1
-    hand_rows = hand.per_frame(frames, (traced, {}))
-    # the hand kernels' device time the trace lacks, counted busy
-    untraced_us = sum(1e3 * r["device_ms"] * frames * max(
-        0.0, 1.0 - r["traced_device_events"] / r["launches"])
-        for r in hand_rows.values() if r["launches"])
+            r = traced.setdefault(lib, dict(kernels=0, us=0.0,
+                                            runtime_calls=0, in_graph=0,
+                                            in_graph_us=0.0))
+            r["kernels"] += 1
+            r["us"] += b - a
+    hand_rows = hand.per_frame(frames, traced)
     return dict(
         slice=name, device=torch.cuda.get_device_name(0), frames=frames,
         first_frame=warmup, wall_s=wall * 1e-6,
         device_busy_s=busy_us * 1e-6, idle_share=1.0 - busy_us / wall,
-        idle_share_hand_kernels_busy=1.0 - (busy_us + untraced_us) / wall,
         hand_kernels=hand_rows,
         kernels=sum(by_stream.values()), kernels_by_stream=by_stream,
         launches_per_frame={k: v / frames for k, v in launches.items()},
