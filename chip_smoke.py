@@ -14,9 +14,11 @@ Phases (any failure exits non-zero):
      ``SlamManager`` with the loop closer on — gates on closures, resets,
      ATE and endpoint error, and on the scorer and the KLT having run as
      their kernels (and never as a plain version on the card; every SLAM
-     slice, A-F and H, is held to the KLT kernel so, to the undistortion
-     and filter kernels (the pyramid, BRIEF's blur, and Scharr's pair
-     where its detector takes it) and, where its profile runs CLAHE,
+     slice, A-F and H, is held to the KLT kernel so, to the undistortion,
+     the tracks' tail (its tracking step's and, where it maps in stereo,
+     its stereo step's) and filter kernels (the pyramid, BRIEF's blur,
+     and Scharr's pair where its detector takes it) and, where its
+     profile runs CLAHE,
      CLAHE's (``gate_image_launches``), and to having replayed its keyframe
      detection and, with inverse-depth BA, its local BA as CUDA graphs);
   5. slice B: the same loop at EuRoC resolution (752x480) with the
@@ -79,10 +81,15 @@ Phases (any failure exits non-zero):
      Scharr gradients; the undistortion and both distortion modes of
      512 pixels through a radtan and a fisheye camera, the radtan
      undistortion map, ``Camera.undistort_px``) and on slices A's and B's
-     frame 40 (CLAHE and the filters); a second launch equal to the
-     first; one line of output digests (``[image] digests``); each kernel
-     timed at slice B's call (ms, device ms, plain ms, bound), the filters
-     beside the cuDNN convolution that computes the same function;
+     frame 40 (CLAHE and the filters); the tracks' tail at 512 and 301
+     rows in every option set, and the tracking step's and stereo
+     mapping's calls against the eager sequence they replaced
+     (``tail_cases``); a second launch equal to the first; one line of
+     output digests (``[image] digests``); each kernel timed at slice B's
+     call (ms, device ms, plain ms, bound; the undistortion and the tail
+     with their 8 steps' chain, the tail beside the eager sequence it
+     replaced), the filters beside the cuDNN convolution that computes
+     the same function;
   6. slice C: mono at 752x480, ``accurate`` profile, relocalizer on, full
      BA, results written — gates on mono initialization, post-init frames,
      scale-aligned ATE, resets and the result files;
@@ -165,7 +172,8 @@ the plain-torch work with a bound (TSDF integration, the ESDF sweep, an LM
 iteration of the distributed BA), one JSON line of the graph steps' rows,
 one JSON line of kernel records (the KLT
 kernel, the RANSAC and PnP kernels, local BA's two kernels, the
-undistortion, filter and CLAHE kernels, and the scorer), the card's name
+undistortion, tail, filter and CLAHE kernels, and the scorer), the card's
+name
 and power limit, and the final ``{"ok": true, "device": ...}`` line.
 
 Imports nothing of JAX or of ``ov2slam_tpu``. Synthetic data is made from
@@ -850,7 +858,8 @@ def run_slice(name: str, dev, seq=None):
           flush=True)
     gate_klt_launches(name, res)
     gate_pose_launches(name, res)
-    gate_image_launches(name, res, cfg.use_clahe, res["use_scharr"])
+    gate_image_launches(name, res, cfg.use_clahe, res["use_scharr"],
+                        cfg.stereo)
     gate_graphs(name, res, cfg.use_inv_depth, cfg.stereo)
     if launches <= 0:
         fail(f"slice {name}: the scorer kernel never launched")
@@ -1154,7 +1163,8 @@ def gate_async(r, b=None) -> None:
         fail(f"slice {name}: the plain scorer ran on cuda")
     gate_klt_launches(name, r)
     gate_pose_launches(name, r)
-    gate_image_launches(name, r, r["use_clahe"], r["use_scharr"])
+    gate_image_launches(name, r, r["use_clahe"], r["use_scharr"],
+                        r["stereo"])
     gate_graphs(name, r, r["inverse_depth"], r["stereo"])
     sd = r["sync_debug"]
     print(f"[slice {name}] synchronizing calls reported by "
@@ -1678,7 +1688,8 @@ def gate_slice_h(r) -> None:
         fail(f"slice H {part}: the plain scorer ran on cuda")
     gate_klt_launches(f"H {part}", r)
     gate_pose_launches(f"H {part}", r)
-    gate_image_launches(f"H {part}", r, r["use_clahe"], r["use_scharr"])
+    gate_image_launches(f"H {part}", r, r["use_clahe"], r["use_scharr"],
+                        r["stereo"])
     gate_graphs(f"H {part}", r, r["inverse_depth"], r["stereo"])
     if part == "kitti" and r["scorer_launches"] < 1:
         fail("slice H kitti: the scorer kernel never launched under the CLI")
@@ -3939,28 +3950,40 @@ def reset_image_counts() -> None:
 
 def image_wrappers():
     """The image and camera kernels' wrappers, each counting its launches:
-    the undistortion, the one-image filter, the pyramid, Scharr's pair and
-    CLAHE."""
+    the undistortion, the tracks' tail, the one-image filter, the pyramid,
+    Scharr's pair and CLAHE."""
     from ov2slam_torch.core import camera, image
 
-    return (camera.undistort_points, image.separable_filter,
-            image.build_pyramid, image.scharr_gradients, image.clahe)
+    return (camera.undistort_points, camera.undistort_normalize,
+            image.separable_filter, image.build_pyramid,
+            image.scharr_gradients, image.clahe)
 
 
 def image_plain_versions():
     from ov2slam_torch.core import camera, image
 
     return (camera.undistort_points_plain, camera.distort_points_plain,
-            image.separable_filter_plain, image.clahe_plain)
+            camera.undistort_normalize_plain, image.separable_filter_plain,
+            image.clahe_plain)
 
 
 def image_counts():
     """The counters :func:`reset_image_counts` zeroes: each wrapper's
     launches (one kernel each; a launch inside a CUDA graph counts at each
-    replay), and the plain versions' calls on CUDA tensors."""
+    replay), the tail's split into the tracking step's (with the select)
+    and stereo mapping's (reference rows alone), and the plain versions'
+    calls on CUDA tensors."""
     from ov2slam_torch.core import camera, image
 
+    tail = camera.undistort_normalize
     return dict(undistort_launches=camera.undistort_points.launches,
+                tail_launches=tail.launches,
+                tail_track_launches=sum(
+                    n for (opts, _), n in tail.shapes.items()
+                    if "select" in opts.split("+")),
+                tail_stereo_launches=sum(
+                    n for (opts, _), n in tail.shapes.items()
+                    if opts == "ref"),
                 filter_launches=image.separable_filter.launches,
                 pyramid_launches=image.build_pyramid.launches,
                 scharr_launches=image.scharr_gradients.launches,
@@ -3976,15 +3999,21 @@ def uses_scharr(cfg) -> bool:
 
 
 def gate_image_launches(name: str, counts, use_clahe: bool,
-                        use_scharr: bool) -> None:
-    """Every SLAM slice undistorts its tracks with the undistortion kernel,
-    builds its pyramids with the pyramid kernel and blurs for BRIEF with
-    the one-image filter kernel, takes Scharr's gradients with the pair
-    kernel where its detector needs them, and runs CLAHE's kernel where its
-    profile turns CLAHE on; no run calls a plain version of the image and
-    camera functions on the card."""
+                        use_scharr: bool, stereo: bool = False) -> None:
+    """Every SLAM slice undistorts its keyframes' detections with the
+    undistortion kernel and ends its tracking step with the tail kernel
+    (and, where it maps in stereo, its stereo step too), builds its
+    pyramids with the pyramid kernel and blurs for BRIEF with the one-image
+    filter kernel, takes Scharr's gradients with the pair kernel where its
+    detector needs them, and runs CLAHE's kernel where its profile turns
+    CLAHE on; no run calls a plain version of the image and camera
+    functions on the card."""
     for key, what, needed in (
             ("undistort_launches", "undistort_points", True),
+            ("tail_track_launches", "tracking step's undistort_normalize",
+             True),
+            ("tail_stereo_launches", "stereo step's undistort_normalize",
+             stereo),
             ("filter_launches", "separable_filter", True),
             ("pyramid_launches", "build_pyramid", True),
             ("scharr_launches", "scharr_gradients", use_scharr),
@@ -4130,8 +4159,142 @@ def image_cases(label: str, img, dev, clip: float = 3.0, levels: int = 4,
     return cases
 
 
+# the tail's rows a call: the front end's slots, and an odd count (a
+# ragged last CTA)
+TAIL_ROWS = (IMAGE_POINTS, 301)
+# the option sets the tail's kernel runs: none, the select alone, the
+# reference rows alone (stereo mapping's), both, and both with the pair
+# mask (the tracking step's, its reference rows under its own calibration)
+TAIL_OPTIONS = ("", "select", "ref", "select+ref", "select+ref+pair")
+TAIL_TRACKING, TAIL_STEREO = "select+ref+pair", "ref"
+
+
+def tail_inputs(n: int, seed: int, dev):
+    """Inputs of the tracks' tail over ``n`` rows, as a frame gives them:
+    the packed (n+2, 8) f32 state whose column views ``px`` (columns 0:2,
+    the slots' pixels) and ``ref`` (5:7, the reference keyframe's
+    undistorted pixels, at an offset no 8-byte load takes) the kernel reads
+    in place; ``rows``, the tracked pixels (``px`` moved by up to 3 px);
+    ``status`` and ``ref_valid`` (about 70% true each); and
+    ``ref_intrinsics``, a calibration of their own (the fisheye
+    fixture's)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    state = rng.normal(size=(n + 2, 8)).astype(np.float32)
+    state[:n, 0:2] = rng.uniform((-20.0, -20.0), (772.0, 500.0), (n, 2))
+    state[:n, 5:7] = rng.uniform((-20.0, -20.0), (772.0, 500.0), (n, 2))
+    rows = state[:n, 0:2] + rng.uniform(-3.0, 3.0, (n, 2))
+    st = torch.as_tensor(state, device=dev)
+    return dict(rows=torch.as_tensor(rows.astype(np.float32), device=dev),
+                px=st[:n, 0:2], ref=st[:n, 5:7],
+                status=torch.as_tensor(rng.random(n) < 0.7, device=dev),
+                ref_valid=torch.as_tensor(rng.random(n) < 0.7, device=dev),
+                ref_intrinsics=image_camera("fisheye", dev)[:4])
+
+
+def tail_kwargs(inputs, opts: str):
+    """The keyword arguments of a tail call with options ``opts`` (one of
+    ``TAIL_OPTIONS``) on ``inputs``: the tracking step's reference rows are
+    under the tracks' own calibration, every other set's under
+    ``ref_intrinsics``."""
+    parts = opts.split("+")
+    kw = {}
+    if "select" in parts:
+        kw.update(px=inputs["px"], status=inputs["status"])
+    if "ref" in parts:
+        kw.update(ref=inputs["ref"], ref_intrinsics=(
+            None if opts == TAIL_TRACKING else inputs["ref_intrinsics"]))
+    if "pair" in parts:
+        kw.update(ref_valid=inputs["ref_valid"])
+    return kw
+
+
+def tail_call(fn, inputs, cam, fisheye: bool, opts: str, iters: int = 8):
+    """``fn`` (``undistort_normalize`` or its plain version) on ``inputs``
+    through camera ``cam`` ((fx, fy, cx, cy, dist)); returns the outputs
+    the options give, in order (tracked, und, xr, xl, pair)."""
+    out = fn(inputs["rows"], *cam, fisheye, iters,
+             **tail_kwargs(inputs, opts))
+    return [t for t in out if t is not None]
+
+
+def tail_eager_sequence(inputs, cam, fisheye: bool, opts: str, fc=None):
+    """The eager sequence the tail replaced on the card, as the tracking
+    step (``models/frontend_step.py``) and stereo mapping
+    (``models/mapper_step.py``) ran it before: ``torch.where``, the
+    undistortion kernel (``undistort_points``), the normalisations as a
+    torch subtraction and division each (stereo mapping stacked each
+    camera's f and c for them; the tracking step had stacked its own once
+    a frame for the priors, ``fc``: (f, c), then not counted here), and the
+    pair mask as a torch ``&``; its outputs in the tail's order."""
+    import torch
+
+    from ov2slam_torch.core import camera as cm
+
+    kw = tail_kwargs(inputs, opts)
+    fx, fy, cx, cy, _ = cam
+    f, c = fc or (torch.stack([fx, fy]), torch.stack([cx, cy]))
+    rows, out = inputs["rows"], []
+    if "px" in kw:
+        rows = torch.where(kw["status"][:, None], rows, kw["px"])
+        out.append(rows)
+    und = cm.undistort_points(rows, *cam, fisheye)
+    out += [und, (und - c) / f]
+    if "ref" in kw:
+        if kw["ref_intrinsics"] is None:
+            rf, rc = f, c
+        else:
+            rfx, rfy, rcx, rcy = kw["ref_intrinsics"]
+            rf, rc = torch.stack([rfx, rfy]), torch.stack([rcx, rcy])
+        out.append((kw["ref"] - rc) / rf)
+    if "ref_valid" in kw:
+        out.append(kw["status"] & kw["ref_valid"])
+    return out
+
+
+def tail_cases(label: str, n: int, dev):
+    """(kernel, name, kernel call, plain call) of the tracks' tail on
+    ``n`` rows (``tail_inputs``): every option set of ``TAIL_OPTIONS``
+    through each fixture camera against the plain version; and the
+    tracking step's
+    and stereo mapping's calls against the eager sequence they replaced
+    (``tail_eager_sequence``)."""
+    from ov2slam_torch.core import camera as cm
+
+    k = "undistort_normalize"
+    inputs = tail_inputs(n, n, dev)
+    cases = []
+    for kind in IMAGE_CAMS:
+        c = image_camera(kind, dev)
+        fe = kind == "fisheye"
+        for opts in TAIL_OPTIONS:
+            cases.append((
+                k, f"{label} tail {kind} {opts or 'none'}",
+                lambda c=c, fe=fe, opts=opts: tail_call(
+                    cm.undistort_normalize, inputs, c, fe, opts),
+                lambda c=c, fe=fe, opts=opts: tail_call(
+                    cm.undistort_normalize_plain, inputs, c, fe, opts)))
+        for opts in (TAIL_TRACKING, TAIL_STEREO):
+            cases.append((
+                k, f"{label} tail {kind} {opts} against the eager sequence",
+                lambda c=c, fe=fe, opts=opts: tail_call(
+                    cm.undistort_normalize, inputs, c, fe, opts),
+                lambda c=c, fe=fe, opts=opts: tail_eager_sequence(
+                    inputs, c, fe, opts)))
+    return cases
+
+
 def _flat(out):
     return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def _bits(t):
+    """``t``'s bits as integers to compare (f32 as int32; bool as is)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
 def image_check(cases, digests, errs):
@@ -4156,14 +4319,16 @@ def image_check(cases, digests, errs):
                      f"the plain {tuple(r.shape)} {r.dtype}")
             for other, what in ((r, "the plain version"),
                                 (b, "a second launch")):
-                bits = a.view(torch.int32) != other.view(torch.int32)
+                bits = _bits(a) != _bits(other)
                 if bool(bits.any()):
-                    d = (a - other).abs().nan_to_num(float("inf"))
+                    d = (a.float() - other.float()).abs().nan_to_num(
+                        float("inf"))
                     fail(f"image {name}: not bit-equal to {what} "
                          f"({int(bits.sum())} values differ, largest "
                          f"{float(d.max()):.3e})")
-            both = ~(a.isnan() | r.isnan())
-            d = torch.where(a == r, 0.0, (a - r).abs())[both]
+            af, rf = a.float(), r.float()
+            both = ~(af.isnan() | rf.isnan())
+            d = torch.where(af == rf, 0.0, (af - rf).abs())[both]
             errs[kernel] = max(errs.get(kernel, 0.0),
                                float(d.max()) if d.numel() else 0.0)
             h.update(a.contiguous().cpu().numpy().tobytes())
@@ -4206,6 +4371,54 @@ def time_image(label, run, plain, bound, library=None, runs: int = 20,
     return row
 
 
+def undistort_chain(run_iters, extra: int = 64, runs: int = 50):
+    """The dependent chain of the undistortion's 8 fixed-point steps on the
+    card: ``run_iters(k)`` is a call at k steps; the device ms of ``runs``
+    such calls queued at 8 + ``extra`` steps less those at 8, over
+    ``extra``, is one step (``step_us``, in µs), and 8 of them the chain
+    (``chain_ms``). A call's threads run their steps side by side, so the
+    difference is their latency, not their work."""
+    t8 = time_cuda_queued(run_iters(8), runs)
+    tk = time_cuda_queued(run_iters(8 + extra), runs)
+    step = (tk - t8) / extra
+    return dict(step_us=1e3 * step, chain_ms=8 * step)
+
+
+def time_tail(label, inputs, cam, opts: str, runs: int = 20):
+    """The tail's timing row at one call (``time_image``'s), with its
+    bound, its chain (``undistort_chain``) and the eager sequence it
+    replaced as the yardstick (``parent_sequence``: ms, device ms, the
+    undistortion kernel's launches a call)."""
+    import torch
+
+    from ov2slam_torch import roofline
+    from ov2slam_torch.core import camera as cm
+
+    parts = opts.split("+")
+    n = inputs["rows"].shape[0]
+
+    def run(iters=8):
+        return lambda: tail_call(cm.undistort_normalize, inputs, cam,
+                                 False, opts, iters)
+
+    row = time_image(
+        label, run(), lambda: tail_call(cm.undistort_normalize_plain,
+                                        inputs, cam, False, opts),
+        roofline.undistort_normalize_bound(
+            n, "select" in parts, "ref" in parts, "pair" in parts),
+        runs=runs)
+    row.update(undistort_chain(run), options=opts)
+    fc = None
+    if opts == TAIL_TRACKING:
+        fc = (torch.stack(cam[0:2]), torch.stack(cam[2:4]))
+    seq = lambda: tail_eager_sequence(inputs, cam, False, opts,  # noqa: E731
+                                      fc)
+    row["parent_sequence"] = dict(
+        ms=time_cuda(seq, runs), device_ms=time_cuda_queued(seq, runs),
+        launches_per_call=image_launches_per_call(seq))
+    return row
+
+
 def conv2d_yardstick(img, taps_y, taps_x, stride: int = 1):
     """(conv, pad): ``F.conv2d`` of ``img`` padded by replication with the
     outer products of the taps (one output channel a pair; TF32 off, as
@@ -4226,17 +4439,20 @@ def conv2d_yardstick(img, taps_y, taps_x, stride: int = 1):
 
 
 def phase_image(dev, frames):
-    """The image and camera kernels (the undistortion, the one-image
-    filter, the pyramid, Scharr's pair, CLAHE) against their plain versions
-    on the card, bit for bit: at each of ``IMAGE_SIZES`` on a fixture
+    """The image and camera kernels (the undistortion, the tracks' tail,
+    the one-image filter, the pyramid, Scharr's pair, CLAHE) against their
+    plain versions on the card, bit for bit: at each of ``IMAGE_SIZES`` on
+    a fixture
     (``image_cases``: CLAHE, its pyramid, a level, the blur, box filter
     and Scharr gradients; the undistortion and distortion
     of pixels through a radtan and a fisheye camera, the radtan image's
     undistortion map) and on ``frames`` ({slice: (frame, clip limit)}:
     slices A's and B's frame ``IMAGE_FRAME`` as the front end uploads it,
-    in uint8, with the config's clip limit); then each kernel timed at
-    slice B's main-path call, the filters beside their cuDNN yardstick
-    (``conv2d_yardstick``).
+    in uint8, with the config's clip limit), and the tracks' tail at each
+    of ``TAIL_ROWS`` (``tail_cases``); then each kernel timed at slice B's
+    main-path call, the filters beside their cuDNN yardstick
+    (``conv2d_yardstick``), the tail beside the eager sequence it replaced
+    (``time_tail``).
     Returns the timing rows by kernel, the largest difference by kernel
     (``image_check``'s) and the digests."""
     import torch
@@ -4257,6 +4473,8 @@ def phase_image(dev, frames):
         held += image_check(image_cases(f"slice {name} frame {IMAGE_FRAME}",
                                         img, dev, clip, cams=False),
                             digests, errs)
+    for n in TAIL_ROWS:
+        held += image_check(tail_cases(f"{n} rows", n, dev), digests, errs)
     print(f"[image] {held} outputs bit-equal to the plain versions on the "
           f"card ({len(digests)} cases; two launches each equal)",
           flush=True)
@@ -4272,12 +4490,20 @@ def phase_image(dev, frames):
     px = image_points(W, H, IMAGE_POINTS, 1, dev)
     c = image_camera("radtan", dev)
     plain_sf = im.separable_filter_plain
+    tail_in = tail_inputs(IMAGE_POINTS, 1, dev)
     rows = dict(
-        undistort_points=[time_image(
+        undistort_points=[dict(time_image(
             f"{IMAGE_POINTS} points, radtan, 8 iterations",
             lambda: cm.undistort_points(px, *c),
             lambda: cm.undistort_points_plain(px, *c),
-            roofline.undistort_points_bound(IMAGE_POINTS))],
+            roofline.undistort_points_bound(IMAGE_POINTS)),
+            **undistort_chain(lambda k: lambda: cm.undistort_points(
+                px, *c, iters=k)))],
+        undistort_normalize=[
+            time_tail(f"{IMAGE_POINTS} rows, radtan, the tracking step's "
+                      f"({TAIL_TRACKING})", tail_in, c, TAIL_TRACKING),
+            time_tail(f"{IMAGE_POINTS} rows, radtan, stereo mapping's "
+                      f"({TAIL_STEREO})", tail_in, c, TAIL_STEREO)],
         separable_filter=[
             time_image(f"9-tap blur {W}x{H} (BRIEF's)",
                        lambda: im.gaussian_blur(img, 2.0, 4),
@@ -4308,6 +4534,13 @@ def phase_image(dev, frames):
             lib = ("" if r["library_ms"] is None else
                    f", conv2d {r['library_device_ms']:.5f} ms on the device "
                    f"(+ pad {r['library_pad_device_ms']:.5f})")
+            if "chain_ms" in r:
+                lib += f", chain {r['chain_ms']:.6f} ms"
+            if "parent_sequence" in r:
+                q = r["parent_sequence"]
+                lib += (f"; the eager sequence it replaced "
+                        f"{q['ms']:.4f} ms, {q['device_ms']:.5f} on the "
+                        f"device")
             print(f"[image] {name} {r['label']}: {r['ms']:.4f} ms per call, "
                   f"{r['device_ms']:.5f} ms on the device, plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.6f} ms "
@@ -4771,6 +5004,8 @@ def main() -> int:
     for name, key, source, replaces in (
             ("undistort_points", "undistort_launches", "undistort_points",
              "ov2slam_tpu/models/frontend_step.py:53"),
+            ("undistort_normalize", "tail_launches", "undistort_points",
+             "ov2slam_tpu/models/frontend_step.py:264"),
             ("separable_filter", "filter_launches", "separable_filter",
              "ov2slam_tpu/core/image.py:24"),
             ("build_pyramid", "pyramid_launches", "separable_filter",
@@ -4788,6 +5023,8 @@ def main() -> int:
             **{k: call[k] for k in ("ms", "device_ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "label")},
+            **{k: call[k] for k in ("chain_ms", "parent_sequence")
+               if k in call},
             launches_by_slice={r["slice"] + (" " + r["part"] if "part" in r
                                              else ""): r[key]
                                for r in slices},

@@ -11,7 +11,10 @@ The fixed-point undistortion and the distortion of points
 (:func:`undistort_points`, :func:`distort_points`) launch
 ``csrc/undistort_points.cu`` on CUDA tensors, one launch a call, and take
 their plain versions (:func:`undistort_points_plain`,
-:func:`distort_points_plain`) on CPU tensors.
+:func:`distort_points_plain`) on CPU tensors. So does the tracks' tail
+(:func:`undistort_normalize`: select, undistort, normalise, and the pair
+mask, in one launch of the same library; plain version
+:func:`undistort_normalize_plain`).
 """
 
 from __future__ import annotations
@@ -74,6 +77,13 @@ def _distort_fn(fisheye: bool):
 # Points through the camera's distortion: plain versions and the kernel
 # --------------------------------------------------------------------------
 
+def _undistort(px, fx, fy, cx, cy, dist, fisheye: bool, iters: int):
+    f, c = torch.stack([fx, fy]), torch.stack([cx, cy])
+    xn = (px - c) / f
+    xu = _undistort_iterative(xn, dist, _distort_fn(fisheye), iters)
+    return xu * f + c
+
+
 def undistort_points_plain(px, fx, fy, cx, cy, dist, fisheye: bool = False,
                            iters: int = 8):
     """Distorted pixels (..., 2) → undistorted pixels, in plain PyTorch:
@@ -81,10 +91,7 @@ def undistort_points_plain(px, fx, fy, cx, cy, dist, fisheye: bool = False,
     steps of the radtan or fisheye model, and back to pixels."""
     if px.is_cuda:
         undistort_points_plain.cuda_runs += 1
-    f, c = torch.stack([fx, fy]), torch.stack([cx, cy])
-    xn = (px - c) / f
-    xu = _undistort_iterative(xn, dist, _distort_fn(fisheye), iters)
-    return xu * f + c
+    return _undistort(px, fx, fy, cx, cy, dist, fisheye, iters)
 
 
 def distort_points_plain(x, fx, fy, cx, cy, dist, fisheye: bool = False,
@@ -98,9 +105,60 @@ def distort_points_plain(x, fx, fy, cx, cy, dist, fisheye: bool = False,
     return _distort_fn(fisheye)(xn, dist) * f + c
 
 
+class TailOut(NamedTuple):
+    """The outputs of :func:`undistort_normalize`; a part its call left out
+    is None."""
+    tracked: Optional[torch.Tensor]   # (N, 2): the select's pixels
+    und: torch.Tensor                 # (N, 2): undistorted pixels
+    xr: torch.Tensor                  # (N, 2): und normalised
+    xl: Optional[torch.Tensor]        # (N, 2): the reference rows' xn
+    pair: Optional[torch.Tensor]      # (N,) bool: status & ref_valid
+
+
+def _tail_options(fn, px, status, ref, ref_valid):
+    """The option set of a tail call, as its counters' key names it
+    ("select", "ref", "pair", joined by "+"; "" for none); raises
+    ValueError on a set the kernel does not run."""
+    if (px is None) != (status is None):
+        raise ValueError(f"{fn}: px and status go together (the select)")
+    if ref_valid is not None and (status is None or ref is None):
+        raise ValueError(f"{fn}: the pair mask needs the select and the "
+                         "reference rows")
+    return "+".join(name for name, t in (("select", px), ("ref", ref),
+                                          ("pair", ref_valid))
+                    if t is not None)
+
+
+def undistort_normalize_plain(rows, fx, fy, cx, cy, dist,
+                              fisheye: bool = False, iters: int = 8, *,
+                              px=None, status=None, ref=None,
+                              ref_intrinsics=None, ref_valid=None):
+    """The tracks' tail in plain PyTorch, the eager operations the front
+    end and stereo mapping ran around the undistortion: with ``px`` and
+    ``status`` the select ``tracked = where(status, rows, px)``; ``und``
+    the undistortion of ``tracked`` (else of ``rows``); ``xr = (und - c) /
+    f``; with ``ref`` (N, 2), ``xl = (ref - c_ref) / f_ref`` under
+    ``ref_intrinsics`` (fx, fy, cx, cy; the tracks' own by default); with
+    ``ref_valid`` the pair mask ``status & ref_valid``."""
+    _tail_options("undistort_normalize", px, status, ref, ref_valid)
+    if rows.is_cuda:
+        undistort_normalize_plain.cuda_runs += 1
+    tracked = None if px is None else torch.where(status[:, None], rows, px)
+    und = _undistort(rows if tracked is None else tracked, fx, fy, cx, cy,
+                     dist, fisheye, iters)
+    xr = (und - torch.stack([cx, cy])) / torch.stack([fx, fy])
+    xl = None
+    if ref is not None:
+        rfx, rfy, rcx, rcy = ref_intrinsics or (fx, fy, cx, cy)
+        xl = (ref - torch.stack([rcx, rcy])) / torch.stack([rfx, rfy])
+    pair = None if ref_valid is None else status & ref_valid
+    return TailOut(tracked, und, xr, xl, pair)
+
+
 # calls on CUDA tensors (the card runs the kernel instead)
 undistort_points_plain.cuda_runs = 0
 distort_points_plain.cuda_runs = 0
+undistort_normalize_plain.cuda_runs = 0
 
 # the kernel's modes
 MODE_UNDISTORT, MODE_DISTORT_PX, MODE_DISTORT_NORMALIZED = 0, 1, 2
@@ -122,6 +180,16 @@ class PointsLaunch(NamedTuple):
     iters: int
 
 
+def _scalar_ptrs(fn, dev, names, ts):
+    ptrs = []
+    for name, t in zip(names, ts):
+        check(fn, name, t, torch.float32, dev)
+        if t.numel() != 1:
+            raise ValueError(f"{fn}: {name} must have one element")
+        ptrs.append(t.data_ptr())
+    return ptrs
+
+
 def pack_points(x, fx, fy, cx, cy, dist, fisheye: bool, mode: int,
                 iters: int = 8) -> PointsLaunch:
     """Checks a launch of ``csrc/undistort_points.cu`` and packs its
@@ -140,12 +208,7 @@ def pack_points(x, fx, fy, cx, cy, dist, fisheye: bool, mode: int,
         check(fn, "points", x, torch.float32, dev)
         x = x.reshape(-1, 2)
     stride = check(fn, "points", x, torch.float32, dev, rows=True)
-    ptrs = []
-    for name, t in (("fx", fx), ("fy", fy), ("cx", cx), ("cy", cy)):
-        check(fn, name, t, torch.float32, dev)
-        if t.numel() != 1:
-            raise ValueError(f"{fn}: {name} must have one element")
-        ptrs.append(t.data_ptr())
+    ptrs = _scalar_ptrs(fn, dev, ("fx", "fy", "cx", "cy"), (fx, fy, cx, cy))
     check(fn, "dist", dist, torch.float32, dev, shape=(4,))
     if mode not in (MODE_UNDISTORT, MODE_DISTORT_PX,
                     MODE_DISTORT_NORMALIZED):
@@ -202,6 +265,121 @@ def distort_points(x, fx, fy, cx, cy, dist, fisheye: bool = False,
 undistort_points.launches = 0
 undistort_points.shapes = collections.Counter()
 undistort_points.origins = collections.Counter()
+
+
+class TailLaunch(NamedTuple):
+    """The arguments of ``undistort_normalize_launch`` before the outputs
+    (pointers as ints, None for a part left out)."""
+    rows: int
+    rows_stride: int
+    px: Optional[int]
+    px_stride: int
+    status: Optional[int]
+    ref: Optional[int]
+    ref_stride: int
+    ref_valid: Optional[int]
+    n: int
+    fx: int
+    fy: int
+    cx: int
+    cy: int
+    dist: int
+    rfx: Optional[int]
+    rfy: Optional[int]
+    rcx: Optional[int]
+    rcy: Optional[int]
+    fisheye: int
+    iters: int
+
+
+def pack_tail(rows, fx, fy, cx, cy, dist, fisheye: bool = False,
+              iters: int = 8, *, px=None, status=None, ref=None,
+              ref_intrinsics=None, ref_valid=None):
+    """Checks a launch of the tracks' tail (``undistort_normalize_launch``)
+    and packs its arguments; returns (:class:`TailLaunch`, the options'
+    name). Raises on what the kernel does not take: TypeError on a dtype
+    (f32 rows and calibration, bool masks), ValueError on another device,
+    rows that are not (N, 2) rows of adjacent values (any row stride: a
+    column view of a packed state is read in place), masks that are not
+    contiguous (N,), intrinsics that are not one element, coefficients
+    that are not 4 contiguous values, an option set it does not run
+    (``_tail_options``), or a negative iteration count."""
+    fn = "undistort_normalize"
+    opts = _tail_options(fn, px, status, ref, ref_valid)
+    dev = device_of(rows, fn)
+    if rows.dim() != 2 or rows.shape[1] != 2:
+        raise ValueError(f"{fn}: rows must be (N, 2), not "
+                         f"{tuple(rows.shape)}")
+    n = rows.shape[0]
+    stride = check(fn, "rows", rows, torch.float32, dev, rows=True)
+    px_ptr = status_ptr = ref_ptr = valid_ptr = None
+    px_stride = ref_stride = 0
+    if px is not None:
+        px_stride = check(fn, "px", px, torch.float32, dev, shape=(n, 2),
+                          rows=True)
+        check(fn, "status", status, torch.bool, dev, shape=(n,))
+        px_ptr, status_ptr = px.data_ptr(), status.data_ptr()
+    if ref is not None:
+        ref_stride = check(fn, "ref", ref, torch.float32, dev,
+                           shape=(n, 2), rows=True)
+        ref_ptr = ref.data_ptr()
+    if ref_valid is not None:
+        check(fn, "ref_valid", ref_valid, torch.bool, dev, shape=(n,))
+        valid_ptr = ref_valid.data_ptr()
+    intr = _scalar_ptrs(fn, dev, ("fx", "fy", "cx", "cy"), (fx, fy, cx, cy))
+    check(fn, "dist", dist, torch.float32, dev, shape=(4,))
+    rintr = [None] * 4
+    if ref is not None:
+        rintr = _scalar_ptrs(fn, dev, ("ref fx", "ref fy", "ref cx",
+                                       "ref cy"),
+                             ref_intrinsics or (fx, fy, cx, cy))
+    if not isinstance(iters, int) or iters < 0:
+        raise ValueError(f"{fn}: iters {iters}")
+    return TailLaunch(rows.data_ptr(), stride, px_ptr, px_stride,
+                      status_ptr, ref_ptr, ref_stride, valid_ptr, n, *intr,
+                      dist.data_ptr(), *rintr, int(bool(fisheye)),
+                      iters), opts
+
+
+def undistort_normalize(rows, fx, fy, cx, cy, dist, fisheye: bool = False,
+                        iters: int = 8, *, px=None, status=None, ref=None,
+                        ref_intrinsics=None, ref_valid=None) -> TailOut:
+    """The tracks' tail (see :func:`undistort_normalize_plain`): select,
+    undistort, normalise, and the reference rows' normalisation and the
+    pair mask where asked. CPU tensors take the plain version; CUDA
+    tensors one launch of ``csrc/undistort_points.cu``'s second kernel,
+    which reads the calibration on the device. No rows launch nothing."""
+    if device_of(rows, "undistort_normalize").type == "cpu":
+        return undistort_normalize_plain(
+            rows, fx, fy, cx, cy, dist, fisheye, iters, px=px,
+            status=status, ref=ref, ref_intrinsics=ref_intrinsics,
+            ref_valid=ref_valid)
+    a, opts = pack_tail(rows, fx, fy, cx, cy, dist, fisheye, iters, px=px,
+                        status=status, ref=ref,
+                        ref_intrinsics=ref_intrinsics, ref_valid=ref_valid)
+    n, dev = a.n, rows.device
+    # the (N, 2) outputs in one allocation
+    outs = iter(torch.empty((2 + (px is not None) + (ref is not None), n, 2),
+                            dtype=torch.float32, device=dev).unbind(0))
+    out = TailOut(
+        tracked=next(outs) if px is not None else None, und=next(outs),
+        xr=next(outs), xl=next(outs) if ref is not None else None,
+        pair=(torch.empty(n, dtype=torch.bool, device=dev)
+              if ref_valid is not None else None))
+    if n > 0:
+        launch.run("undistort_points", (
+            *a, *(None if t is None else t.data_ptr() for t in out)),
+            undistort_normalize, (opts, n), dev,
+            fn="undistort_normalize_launch")
+    return out
+
+
+# launches of the tail's kernel (a launch inside a CUDA graph counts on
+# each replay), how many at each (options, N), and how many from each
+# (thread name, CUDA stream handle)
+undistort_normalize.launches = 0
+undistort_normalize.shapes = collections.Counter()
+undistort_normalize.origins = collections.Counter()
 
 
 # --------------------------------------------------------------------------

@@ -83,6 +83,13 @@ _SIGNATURES = {
 KERNELS = tuple(_SIGNATURES)
 # a library's further launch functions, beside its first above
 _EXTRA_SIGNATURES = {
+    "undistort_points": {
+        "undistort_normalize_launch": (
+            _C.c_int, [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_int,
+                       _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_void_p,
+                       _C.c_int, *[_C.c_void_p] * 9, _C.c_int, _C.c_int,
+                       *[_C.c_void_p] * 6]),
+    },
     "separable_filter": {
         "separable_pyramid_launch": (
             _C.c_int, [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int,

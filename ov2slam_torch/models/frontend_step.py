@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.camera import distort_points, undistort_points
+from ..core.camera import (distort_points, undistort_normalize,
+                           undistort_points)
 from ..core.image import build_pyramid, clahe
 from ..geometry.essential import essential_ransac
 from ..graphs import GraphedStep
@@ -232,18 +233,24 @@ def fused_track_step(
                                  max_err=klt_err)
         fb = torch.linalg.norm(bwd - px, dim=-1)
         status = st_f & st_b & (fb <= max_fbklt_dist)
-    tracked = torch.where(status[:, None], fwd, px)
     out = {}
     if debug:
         out.update(st_fwd=st_f, st_bwd=st_b, fb=fb, priors=priors)
 
-    und = _undistort_px(tracked, calib, fisheye)
+    # --- the tracks' tail, in one launch on CUDA: tracked = where(status,
+    # fwd, px) (a lost track keeps its last pixel) and und its
+    # undistortion; for the epipolar gate, xl = (kf_px_und - c) / f,
+    # xr = (und - c) / f and pair = status & kf_pair_valid (the tracks
+    # that hold in both frames) ------------------------------------------ #
+    tail = undistort_normalize(
+        fwd, *calib.intrinsics(), calib.dist, fisheye, px=px, status=status,
+        **(dict(ref=kf_px_und, ref_valid=kf_pair_valid) if do_epipolar
+           else {}))
+    tracked, und = tail.tracked, tail.und
 
     # --- epipolar 2d-2d gate vs the reference keyframe ------------------ #
     if do_epipolar:
-        pair = status & kf_pair_valid
-        xl = (kf_px_und - cxy) / fxy
-        xr = (und - cxy) / fxy
+        pair, xl, xr = tail.pair, tail.xl, tail.xr
         i5, i8 = ransac_idx if ransac_idx is not None else (None, None)
         E, epi_inl, n_epi = essential_ransac(
             gen, xl, xr, pair, focal=calib.fx, err_th_px=ransac_err_px,

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.camera import undistort_normalize
 from ..core.image import build_pyramid, clahe
 from ..geometry.essential import sampson_dist_sq
 from ..geometry.triangulation import reprojection_checks, triangulate_midpoint
@@ -27,14 +28,18 @@ from ..graphs import GraphedStep, counters
 from ..ops.klt import fb_klt_track
 from ..ops.stereo_sad import line_min_sad
 from ..utils import lie
-from .frontend_step import FLAG_IS3D, FLAG_VALID, CalibArrays, _undistort_px
+from .frontend_step import FLAG_IS3D, FLAG_VALID, CalibArrays
+
+
+def _bearing_from_xn(xn):
+    """Unit bearing from normalised coordinates."""
+    bv = torch.cat([xn, torch.ones_like(xn[..., :1])], -1)
+    return bv / torch.linalg.norm(bv, dim=-1, keepdim=True)
 
 
 def _bearing_from_und(px_und, calib: CalibArrays):
     """Unit bearing from an UNDISTORTED pixel (normalize through K)."""
-    xn = (px_und - calib.c()) / calib.f()
-    bv = torch.cat([xn, torch.ones_like(xn[..., :1])], -1)
-    return bv / torch.linalg.norm(bv, dim=-1, keepdim=True)
+    return _bearing_from_xn((px_und - calib.c()) / calib.f())
 
 
 def pack_stereo_state(px, lm_pos, valid, is3d, T_wc, out=None):
@@ -103,17 +108,22 @@ def fused_stereo_map_step(
         win=win, iters=iters, max_err=klt_err,
         max_fb_dist=max_fbklt_dist)
 
-    # Sampson residual gate under the known stereo geometry
-    xl = (px - calib_l.c()) / calib_l.f()
-    r_und = _undistort_px(tracked, calib_r, fisheye_r)
-    xr = (r_und - calib_r.c()) / calib_r.f()
+    # Sampson residual gate under the known stereo geometry: the left
+    # pixels normalised, the right tracks undistorted and normalised, in
+    # one launch on CUDA
+    tail = undistort_normalize(tracked, *calib_r.intrinsics(), calib_r.dist,
+                               fisheye_r, ref=px,
+                               ref_intrinsics=calib_l.intrinsics())
+    xl, xr = tail.xl, tail.xr
     d2 = sampson_dist_sq(E_lr, xl, xr)
     epi_ok = d2 < (max_reproj_err / calib_l.fx) ** 2
     stereo_ok = status & epi_ok & valid
 
     cand = stereo_ok & ~lm_is3d
-    bl = _bearing_from_und(px, calib_l)
-    br = _bearing_from_und(r_und, calib_r)
+    # the bearings of px and of the undistorted right tracks, from the
+    # same normalised coordinates the gate took
+    bl = _bearing_from_xn(xl)
+    br = _bearing_from_xn(xr)
     pts_l = triangulate_midpoint(T_lr[None], bl, br)
     ok = reprojection_checks(T_lr, bl, br, pts_l, calib_l.fx,
                              max_reproj_err, min_depth=0.05)

@@ -342,6 +342,23 @@ def undistort_points_bound(n: int):
                   16 * n + 32)
 
 
+def undistort_normalize_bound(n: int, select: bool = True,
+                              ref: bool = True, pair: bool = True):
+    """The least time of one tail launch (``undistort_normalize``) on
+    ``n`` rows with radtan distortion: ``undistort_points_bound``'s
+    operations, the tracks' normalisation (2 a coordinate) and, with
+    ``ref``, the reference rows' (the select and the pair mask are no
+    f32 operations); bytes of the rows read once (8 a row; with
+    ``select`` the old pixels and the status, 9 more; with ``ref`` 8; with
+    ``pair`` the reference mask, 1), the outputs written once (und and xr,
+    16 a row; tracked 8, xl 8, pair 1) and the calibration (8 floats, 4
+    more with ``ref``) read once. Returns ops, bytes, bound_ms,
+    bound_by."""
+    ops = 4 + UNDIST_ITERS * (RADTAN_OPS + 4) + 4 + 4 + 4 * ref
+    row = 8 + 16 + 17 * select + 16 * ref + 2 * pair
+    return _bound(n * ops, n * row + 32 + 16 * ref)
+
+
 def separable_filter_bound(H: int, W: int, ny: int, nx: int, stride: int):
     """The least time of one ``separable_filter`` launch, y first, on an
     (H, W) f32 image with ``ny`` and ``nx`` non-zero taps at ``stride``: a

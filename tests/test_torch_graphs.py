@@ -285,35 +285,48 @@ def _stereo_case(dev, n=96, seed=2):
 
 
 def test_cuda_graphed_stereo_step_is_bit_equal_and_counts_klt_launches():
-    """Replays equal the eager step; the capture launches no KLT kernel of
-    its own, and each replay counts the one it holds, with this thread
-    and stream; the graph holds one launch each of the right image's
-    pyramid, the KLT and the undistortion kernels; a new left pyramid is
-    copied into the graph's inputs."""
+    """Replays equal the eager step, and the eager step with the tracks'
+    tail in its plain form (the eager operations it replaced); the capture
+    launches no KLT kernel of its own, and each replay counts the one it
+    holds, with this thread and stream; the graph holds one launch each of
+    the right image's pyramid, the KLT and the tail kernels (the tail in
+    place of the undistortion and the eight torch kernels around it),
+    each counted at every replay; a new left pyramid is copied into the
+    graph's inputs."""
     import threading
 
+    from ov2slam_torch.core import camera
     from ov2slam_torch.models import mapper_step
     from ov2slam_torch.ops import klt
 
     dev = _cuda()
     tensors, static = _stereo_case(dev)
     step = graphs.GraphedStep(mapper_step._stereo_graph_fn)
-    counts = [klt.klt_track.launches]
+    fns = (klt.klt_track, camera.undistort_normalize,
+           camera.undistort_points)
+    counts = [[f.launches for f in fns]]
     outs = []
     for _ in range(4):
         outs.append(step(*tensors, **static))
-        counts.append(klt.klt_track.launches)
+        counts.append([f.launches for f in fns])
     torch.cuda.synchronize()
     assert (step.eager, step.captures, step.replays) == (1, 1, 3)
-    assert np.diff(counts).tolist() == [1, 1, 1, 1]
+    assert np.diff(counts, axis=0).tolist() == [[1, 1, 0]] * 4
     (entry,) = step.cache.values()
     assert sorted(fn.__name__ for fn, _ in entry["launches"]) == [
-        "build_pyramid", "klt_track", "undistort_points"]
+        "build_pyramid", "klt_track", "undistort_normalize"]
     key = (threading.current_thread().name,
            torch.cuda.current_stream(dev).cuda_stream)
     assert klt.klt_track.origins[key] >= 4
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+    saved = mapper_step.undistort_normalize
+    mapper_step.undistort_normalize = camera.undistort_normalize_plain
+    try:
+        plain = mapper_step._stereo_graph_fn(*tensors, **static)
+    finally:
+        mapper_step.undistort_normalize = saved
+    assert torch.equal(outs[0], plain)
     other, _ = _stereo_case(dev, seed=4)
     moved = (*other[:3], *tensors[3:])       # another keyframe's left image
     assert torch.equal(step(*moved, **static),

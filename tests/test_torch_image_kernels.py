@@ -1,7 +1,8 @@
 """The front end's image and camera kernels (``csrc/undistort_points.cu``,
 ``csrc/separable_filter.cu``: one image, the pyramid, Scharr's pair;
 ``csrc/clahe.cu``), their wrappers and plain versions (``core/camera.py``:
-``undistort_points``, ``distort_points``; ``core/image.py``:
+``undistort_points``, ``distort_points``, the tracks' tail
+``undistort_normalize``; ``core/image.py``:
 ``separable_filter`` and the filters built on it, ``build_pyramid``,
 ``scharr_gradients``, ``clahe``; each with its ``_plain`` form).
 
@@ -33,7 +34,17 @@ an odd 377x241 (ragged CLAHE tiles, odd pyramid levels):
   points whose values are not adjacent, intrinsics that are not one
   element;
 - every launch function of the three libraries (``kernels.entry_points``)
-  against the exported C function's parameters in the ``.cu`` source.
+  against the exported C function's parameters in the ``.cu`` source;
+- the tracks' tail: its plain version against the JAX package's own
+  expressions (``jnp.where``, ``frontend_step._undistort_px``, the
+  ``(. - c) / f`` of its tracking and stereo steps) in every option set,
+  at 1, 127, 300 and 512 rows, the slots' pixels and the reference rows
+  as column views of a packed state (1e-3 px, 1e-5 normalised; the select
+  and the pair mask exact), the CPU wrapper equal to it bit for bit; the
+  tracking step on the CPU equal to the code the tail replaced, in every
+  output, with and without the epipolar gate; the stereo step's bearings
+  equal to those it computed again before; the tail's packing (column
+  views read in place) and its refusals.
 
 On the card (skipped without one, decided inside the test; the fixtures are
 ``chip_smoke.image_cases``'): every output of the kernels bit-equal to its
@@ -41,9 +52,12 @@ plain version on the card, and a second launch to the first, at 752x480,
 376x240, 1241x376, 640x480 and 377x241 (radtan and fisheye points; CLAHE
 at clip 3 and at 2.7, whose limit's fractional bits make the excess sum's
 order count at 1241x376 and 377x241; the pyramid at 4 levels, one launch,
-and at 6, two; two filters in the kernel's generic form); a CUDA-graph replay of CLAHE, the pyramid, Scharr's
-gradients and the undistortion bit-equal to the eager call, its launches
-counted at each replay (one a call each); an f64 CUDA tensor refused with
+and at 6, two; two filters in the kernel's generic form); a CUDA-graph
+replay of CLAHE, the pyramid, Scharr's gradients and the undistortion
+bit-equal to the eager call, its launches counted at each replay (one a
+call each); the tail bit-equal to its plain version in every option set
+and to the eager sequence it replaced (``chip_smoke.tail_cases``, 512 and
+301 rows), and in a CUDA-graph replay; an f64 CUDA tensor refused with
 TypeError by each wrapper. The file
 imports no JAX at module level: on the card ``python -m pytest
 --noconftest tests/test_torch_image_kernels.py`` runs it (the tests that
@@ -268,6 +282,200 @@ def test_points_match_jax(kind, mode):
     np.testing.assert_allclose(b.numpy(), np.asarray(a), atol=1e-3)
 
 
+TAIL_N = (1, 127, 300, 512)
+
+
+@pytest.mark.parametrize("n", TAIL_N)
+@pytest.mark.parametrize("opts", chip_smoke.TAIL_OPTIONS,
+                         ids=[o or "none" for o in chip_smoke.TAIL_OPTIONS])
+@pytest.mark.parametrize("kind", ["radtan", "fisheye"])
+def test_tail_matches_jax(kind, opts, n):
+    # the tail's plain version against the JAX package's own expressions:
+    # jnp.where, frontend_step._undistort_px and the (. - c) / f of
+    # frontend_step.py:278-279 and mapper_step.py:124-128; f32 on both
+    # sides, as test_points_match_jax: 1e-3 px, 1e-5 normalised; the
+    # select and the mask exact. The CPU wrapper is the plain version.
+    _jax()
+    import jax.numpy as jnp
+
+    from ov2slam_tpu.models import frontend_step as jfs
+
+    fe = kind == "fisheye"
+    c = _cam(kind)
+    inp = chip_smoke.tail_inputs(n, 11 + n, CPU)
+    assert inp["px"].stride() == (8, 1)        # a column view of the state
+    ours = chip_smoke.tail_call(cm.undistort_normalize_plain, inp, c, fe,
+                                opts)
+    wrapped = chip_smoke.tail_call(cm.undistort_normalize, inp, c, fe, opts)
+    assert all(_bits_equal(a, b) if a.dtype == torch.float32
+               else torch.equal(a, b) for a, b in zip(wrapped, ours,
+                                                      strict=True))
+
+    def j(t):
+        return jnp.asarray(t.numpy())
+
+    kw = chip_smoke.tail_kwargs(inp, opts)
+    jc = jfs.CalibArrays(*(j(v) for v in c))
+    t = j(inp["rows"])
+    theirs = []
+    if "px" in kw:
+        t = jnp.where(j(kw["status"])[:, None], t, j(kw["px"]))
+        theirs.append(t)
+    und = jfs._undistort_px(t, jc, fe)
+    xr = (und - jnp.stack([jc.cx, jc.cy])) / jnp.stack([jc.fx, jc.fy])
+    theirs += [und, xr]
+    if "ref" in kw:
+        rfx, rfy, rcx, rcy = (j(v) for v in kw["ref_intrinsics"] or c[:4])
+        theirs.append((j(kw["ref"]) - jnp.stack([rcx, rcy]))
+                      / jnp.stack([rfx, rfy]))
+    if "ref_valid" in kw:
+        theirs.append(j(kw["status"]) & j(kw["ref_valid"]))
+    assert len(ours) == len(theirs)
+    names = [k for k in ("tracked", "und", "xr", "xl", "pair")
+             if (k != "tracked" or "px" in kw) and (k != "xl" or "ref" in kw)
+             and (k != "pair" or "ref_valid" in kw)]
+    for name, a, b in zip(names, ours, theirs, strict=True):
+        if name in ("tracked", "pair"):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            np.testing.assert_allclose(
+                a.numpy(), np.asarray(b),
+                atol=1e-3 if name == "und" else 1e-5)
+
+
+def _inline_tail(rows, fx, fy, cx, cy, dist, fisheye=False, iters=8, *,
+                 px=None, status=None, ref=None, ref_intrinsics=None,
+                 ref_valid=None):
+    """The tracking step's code that the tail replaced, as it stood."""
+    from ov2slam_torch.models.frontend_step import CalibArrays, _undistort_px
+
+    calib = CalibArrays(fx, fy, cx, cy, dist)
+    fxy, cxy = calib.f(), calib.c()
+    tracked = torch.where(status[:, None], rows, px)
+    und = _undistort_px(tracked, calib, fisheye)
+    pair = xl = None
+    xr = (und - cxy) / fxy
+    if ref is not None:
+        pair = status & ref_valid
+        xl = (ref - cxy) / fxy
+    return cm.TailOut(tracked, und, xr, xl, pair)
+
+
+def _track_scene(n=96):
+    """A 188x120 frame pair of a synthetic arc, up to ``n`` landmarks of the
+    scene seen in the first frame with their pixels, and a radtan
+    calibration."""
+    from ov2slam_torch.core.image import build_pyramid
+    from ov2slam_torch.io.synthetic import generate_sequence
+    from ov2slam_torch.models.frontend_step import CalibArrays
+    from ov2slam_torch.utils import lie_np
+
+    seq = generate_sequence(n_frames=3, stereo=False, width=188, height=120,
+                            n_points=1500, seed=5, speed=0.05)
+    T1 = seq.gt_poses[1].astype(np.float64)
+    pc = lie_np.pose_apply(lie_np.pose_inverse(T1),
+                           seq.points.astype(np.float64))
+    K = seq.K
+    uv = pc[:, :2] / pc[:, 2:] * (K[0, 0], K[1, 1]) + (K[0, 2], K[1, 2])
+    ok = ((pc[:, 2] > 0.5) & (uv[:, 0] > 12) & (uv[:, 0] < 176)
+          & (uv[:, 1] > 12) & (uv[:, 1] < 108))
+    idx = np.nonzero(ok)[0][:n]
+    rng = np.random.default_rng(3)
+    px = np.zeros((n, 2), np.float32)
+    lm = np.zeros((n, 3), np.float32)
+    px[:len(idx)] = uv[idx]
+    lm[:len(idx)] = seq.points[idx]
+    valid = np.arange(n) < len(idx)
+    kf_px = px + rng.normal(0.0, 1.5, (n, 2)).astype(np.float32)
+    pair = valid & (rng.random(n) < 0.8)
+    f32 = torch.float32
+    calib = CalibArrays(*(torch.tensor(v, dtype=f32) for v in (
+        K[0, 0], K[1, 1], K[0, 2], K[1, 2])),
+        dist=torch.tensor([-0.05, 0.01, 1e-4, -2e-4]))
+    prev = tuple(build_pyramid(torch.as_tensor(
+        seq.images_left[1].astype(np.float32)), 3))
+    img = torch.as_tensor(np.clip(np.round(seq.images_left[2]), 0,
+                                  255).astype(np.uint8))
+    args = (img, prev, torch.as_tensor(px), torch.as_tensor(valid),
+            torch.as_tensor(lm), torch.as_tensor(kf_px),
+            torch.as_tensor(valid), torch.as_tensor(pair),
+            torch.as_tensor(seq.gt_poses[2].astype(np.float32)),
+            torch.as_tensor(seq.gt_poses[1].astype(np.float32)))
+    return args, calib
+
+
+@pytest.mark.parametrize("epipolar", [True, False],
+                         ids=["epipolar", "no_epipolar"])
+def test_fused_track_step_on_cpu_equals_the_inline_code(monkeypatch,
+                                                        epipolar):
+    # the tracking step through the tail gives what the code it replaced
+    # gave, bit for bit, in every output (debug entries included)
+    from ov2slam_torch.models import frontend_step as fs
+
+    args, calib = _track_scene()
+
+    def step():
+        gen = torch.Generator().manual_seed(7)
+        return fs.fused_track_step(*args, gen, calib, levels=3,
+                                   do_epipolar=epipolar, ransac_iters=40,
+                                   debug=True)
+
+    pyr, out = step()
+    assert int(out["status"].sum()) >= 30
+    monkeypatch.setattr(fs, "undistort_normalize", _inline_tail)
+    pyr0, out0 = step()
+    assert sorted(out) == sorted(out0)
+    for a, b in zip(pyr, pyr0, strict=True):
+        assert _bits_equal(a, b)
+    for k in out:
+        a, b = out[k], out0[k]
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        assert (_bits_equal(a, b) if a.dtype == torch.float32
+                else torch.equal(a, b)), k
+
+
+def test_stereo_step_bearings_are_the_gates_coordinates():
+    # the stereo step now takes its bearings from the tail's xl and xr:
+    # the same operations on the same inputs as the (. - c) / f it ran
+    # again before, so the same bits
+    from ov2slam_torch.models import mapper_step as ms
+    from ov2slam_torch.models.frontend_step import CalibArrays, _undistort_px
+
+    inp = chip_smoke.tail_inputs(300, 5, CPU)
+    cl = CalibArrays(*_cam("radtan"))
+    cr = CalibArrays(*_cam("fisheye"))
+    tail = cm.undistort_normalize(inp["rows"], *cr, True, ref=inp["px"],
+                                  ref_intrinsics=cl.intrinsics())
+    r_und = _undistort_px(inp["rows"], cr, True)
+    assert _bits_equal(tail.und, r_und)
+    assert _bits_equal(ms._bearing_from_xn(tail.xl),
+                       ms._bearing_from_und(inp["px"], cl))
+    assert _bits_equal(ms._bearing_from_xn(tail.xr),
+                       ms._bearing_from_und(r_und, cr))
+
+
+def test_pack_tail_reads_column_views_in_place():
+    inp = chip_smoke.tail_inputs(10, 0, CPU)
+    c = _cam("radtan")
+    a, opts = cm.pack_tail(inp["rows"], *c, False, **chip_smoke.tail_kwargs(
+        inp, chip_smoke.TAIL_TRACKING))
+    base = inp["px"].data_ptr()
+    assert opts == "select+ref+pair"
+    assert (a.rows_stride, a.px, a.px_stride, a.ref, a.ref_stride, a.n) == (
+        2, base, 8, base + 20, 8, 10)
+    # the tracking step's reference rows under its own calibration
+    assert (a.rfx, a.rcy) == (c[0].data_ptr(), c[3].data_ptr())
+    assert (a.status, a.ref_valid) == (inp["status"].data_ptr(),
+                                       inp["ref_valid"].data_ptr())
+    a, opts = cm.pack_tail(inp["rows"], *c, True, 3, ref=inp["ref"],
+                           ref_intrinsics=inp["ref_intrinsics"])
+    assert opts == "ref" and (a.px, a.status, a.ref_valid) == (None,) * 3
+    assert (a.rfx, a.fisheye, a.iters) == (
+        inp["ref_intrinsics"][0].data_ptr(), 1, 3)
+    a, opts = cm.pack_tail(inp["rows"], *c)
+    assert opts == "" and (a.ref, a.rfx, a.rcy) == (None,) * 3
+
+
 def test_pack_filter_takes_the_nonzero_taps_in_order():
     img = _img((64, 32))
     a = im.pack_filter(img, DIFF, SMOOTH, x_first=True, stride=1)
@@ -385,6 +593,34 @@ def _refuse(kind):
         return lambda: cm.pack_points(px, *c[:4], c[4][:3], False, 0)
     if kind == "mode":
         return lambda: cm.pack_points(px, *c, False, 3)
+    inp = chip_smoke.tail_inputs(10, 0, CPU)
+    rows, st, rv = inp["rows"], inp["status"], inp["ref_valid"]
+    if kind == "tail_px_without_status":
+        return lambda: cm.pack_tail(rows, *c, px=inp["px"])
+    if kind == "tail_pair_without_ref":
+        return lambda: cm.pack_tail(rows, *c, px=inp["px"], status=st,
+                                    ref_valid=rv)
+    if kind == "tail_rows_f64":
+        return lambda: cm.pack_tail(rows.double(), *c)
+    if kind == "tail_rows_shape":
+        return lambda: cm.pack_tail(rows[:, :1], *c)
+    if kind == "tail_rows_3d":
+        return lambda: cm.pack_tail(rows[None], *c)
+    if kind == "tail_status_not_bool":
+        return lambda: cm.pack_tail(rows, *c, px=inp["px"],
+                                    status=st.to(torch.uint8))
+    if kind == "tail_status_length":
+        return lambda: cm.pack_tail(rows, *c, px=inp["px"], status=st[:9])
+    if kind == "tail_ref_not_adjacent":
+        both = torch.zeros((10, 4))
+        return lambda: cm.pack_tail(rows, *c, ref=both[:, ::2])
+    if kind == "tail_ref_length":
+        return lambda: cm.pack_tail(rows, *c, ref=inp["ref"][:9])
+    if kind == "tail_ref_intrinsic_two_elements":
+        return lambda: cm.pack_tail(rows, *c, ref=inp["ref"],
+                                    ref_intrinsics=(c[0].expand(2), *c[1:4]))
+    if kind == "tail_iters":
+        return lambda: cm.pack_tail(rows, *c, False, -1)
     raise AssertionError(kind)
 
 
@@ -401,7 +637,14 @@ def _refuse(kind):
     ("clahe_few_tiles", ValueError),
     ("points_not_adjacent", ValueError), ("points_f64", TypeError),
     ("points_shape", ValueError), ("intrinsic_two_elements", ValueError),
-    ("dist_shape", ValueError), ("mode", ValueError)])
+    ("dist_shape", ValueError), ("mode", ValueError),
+    ("tail_px_without_status", ValueError),
+    ("tail_pair_without_ref", ValueError), ("tail_rows_f64", TypeError),
+    ("tail_rows_shape", ValueError), ("tail_rows_3d", ValueError),
+    ("tail_status_not_bool", TypeError), ("tail_status_length", ValueError),
+    ("tail_ref_not_adjacent", ValueError), ("tail_ref_length", ValueError),
+    ("tail_ref_intrinsic_two_elements", ValueError),
+    ("tail_iters", ValueError)])
 def test_packing_refuses_what_the_kernels_do_not_take(kind, exc):
     with pytest.raises(exc):
         _refuse(kind)()
@@ -468,6 +711,11 @@ def test_every_launch_function_is_registered():
 @pytest.mark.parametrize("fn,figures", [
     (lambda r: r.undistort_points_bound(512),
      (135168, 8224, "bytes")),
+    # the tracking step's tail: 272 f32 operations and 59 bytes a row (8
+    # in, 9 and 8 for the select, 8 and 8 for the reference rows, 1 and 1
+    # for the pair mask, 16 out), the two calibrations' 12 floats once
+    (lambda r: r.undistort_normalize_bound(512),
+     (512 * 272, 512 * 59 + 48, "bytes")),
     (lambda r: r.separable_filter_bound(480, 752, 5, 5, 2),
      (2707200, 1804800, "bytes")),
     (lambda r: r.clahe_bound(480, 752), (12420096, 2887680, "bytes")),
@@ -480,8 +728,8 @@ def test_every_launch_function_is_registered():
     # image read once and both gradients written once
     (lambda r: r.scharr_pair_bound(480, 752),
      (20 * 360960, 12 * 360960, "bytes"))],
-    ids=["undistort_points", "separable_filter", "clahe", "pyramid",
-         "scharr_pair"])
+    ids=["undistort_points", "undistort_normalize", "separable_filter",
+         "clahe", "pyramid", "scharr_pair"])
 def test_roofline_bounds(fn, figures):
     from ov2slam_torch import roofline
 
@@ -546,6 +794,50 @@ def test_cuda_graph_replay_equals_eager_and_counts_launches():
     assert [f.launches - n for f, n in zip(fns, n0)] == [6, 0, 6, 6, 6]
 
 
+@pytest.mark.parametrize("n", chip_smoke.TAIL_ROWS)
+def test_cuda_tail_bit_equal_to_plain_and_the_eager_sequence(n):
+    # every option set, through both cameras; the tracking step's and
+    # stereo mapping's calls also against the eager sequence they replaced
+    dev = _card()
+    digests, errs = {}, {}
+    held = chip_smoke.image_check(chip_smoke.tail_cases(f"{n}", n, dev),
+                                  digests, errs)
+    assert len(digests) == 14 and held == 50
+    assert errs == dict(undistort_normalize=0.0)
+
+
+def test_cuda_graphed_tail_equals_eager_and_counts_launches():
+    from ov2slam_torch import graphs
+
+    dev = _card()
+    c = _cam("radtan", dev)
+    opts = chip_smoke.TAIL_TRACKING
+
+    def step(rows, px, status, ref, ref_valid):
+        inp = dict(rows=rows, px=px, status=status, ref=ref,
+                   ref_valid=ref_valid, ref_intrinsics=None)
+        return tuple(chip_smoke.tail_call(cm.undistort_normalize, inp, c,
+                                          False, opts))
+
+    keys = ("rows", "px", "status", "ref", "ref_valid")
+    args = [[chip_smoke.tail_inputs(512, s, dev)[k] for k in keys]
+            for s in range(3)]
+    g = graphs.GraphedStep(step)
+    for a in args[:2]:
+        g(*a)
+    assert (g.eager, g.captures) == (1, 1)
+    n0, r0 = cm.undistort_normalize.launches, g.replays
+    for a in args[::-1]:
+        out = g(*a)
+        ref = step(*a)
+        torch.cuda.synchronize()
+        assert all(torch.equal(chip_smoke._bits(x), chip_smoke._bits(y))
+                   for x, y in zip(out, ref, strict=True))
+    # three replays and three eager calls, one launch each
+    assert g.replays - r0 == 3
+    assert cm.undistort_normalize.launches - n0 == 6
+
+
 def test_cuda_f64_raises_type_error():
     dev = _card()
     img = torch.zeros((48, 64), dtype=torch.float64, device=dev)
@@ -555,6 +847,7 @@ def test_cuda_f64_raises_type_error():
                 lambda: im.build_pyramid(img, 4),
                 lambda: im.scharr_gradients(img),
                 lambda: cm.undistort_points(px, *c),
-                lambda: cm.distort_points(px, *c)):
+                lambda: cm.distort_points(px, *c),
+                lambda: cm.undistort_normalize(px, *c)):
         with pytest.raises(TypeError):
             run()

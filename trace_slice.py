@@ -181,7 +181,8 @@ HAND_KERNELS = {
     "hamming_score": ("score_kernel",),
     "ba_normal_eq": ("ba_rows_kernel", "ba_sums_kernel"),
     "ba_schur_step": ("schur_prepare_kernel", "schur_step_kernel"),
-    "undistort_points": ("undistort_points_kernel",),
+    "undistort_points": ("undistort_points_kernel",
+                         "undistort_normalize_kernel"),
     "separable_filter": ("filter_kernel", "pyramid_kernel", "scharr_kernel"),
     "clahe": ("clahe_kernel",),
 }
@@ -195,7 +196,8 @@ HAND_WRAPPERS = {
     "ba_normal_eq": ("solvers.ba_invdepth", ("normal_equations",
                                              "lm_accept")),
     "ba_schur_step": ("solvers.ba_invdepth", ("schur_step",)),
-    "undistort_points": ("core.camera", ("undistort_points",)),
+    "undistort_points": ("core.camera", ("undistort_points",
+                                         "undistort_normalize")),
     "separable_filter": ("core.image", ("separable_filter", "build_pyramid",
                                         "scharr_gradients")),
     "clahe": ("core.image", ("clahe",)),
