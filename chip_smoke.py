@@ -124,9 +124,22 @@ Phases (any failure exits non-zero):
      package's, whichever is larger); the ESDF 0 on occupied voxels and
      <= 5 m; after the first rig step, the card's volume equal to the same
      calls on the CPU (1e-5 relative) except on voxels whose pixel differs
-     between the devices, at most 1e-4 of the updated ones. Reports ms per
-     integration and per ESDF sweep against their bounds, the mesh's host
-     seconds and the peak device memory;
+     between the devices, at most 1e-4 of the updated ones; the
+     integration kernel (``csrc/tsdf.cu``) launched once an integration
+     and the sweep kernel once a sweep of the ESDF, no plain TSDF function
+     on the card. Then the [tsdf] check (``phase_tsdf``): both kernels
+     against their plain versions on the card at atol 0 (bits; NaNs by
+     position), on copies of the fused grid over the first rig step's six
+     integrations and on an odd 37x29x23 grid (depth with NaN, +-inf and
+     values outside the ray bounds, principal point at k + 0.5 px), each
+     in the four option sets (colour on or off, constant or 1/z^2
+     weights), and 50 sweeps of slice G's occupancy (the float4 sweep
+     kernel), of the odd grid's (the scalar one) and of a 37x29x24 one
+     (the float4 kernel's ragged tiles), and 3 of each of the last two
+     with NaN voxels. Reports ms, device ms, plain ms,
+     kernels a call and bound of an integration and of a sweep, the
+     device memory an integration adds (kernel and plain), the mesh's
+     host seconds and the peak device memory;
  12. slice H: ``ov2slam_torch.run_slam.main`` in-process on the card over a
      KITTI-layout directory (slice A's loop at 1241x376 with 8000
      points, ``accurate`` profile, loop closer on) and a TartanAir-layout one (640x480, with
@@ -168,11 +181,11 @@ populated prefix of the index, every M it took; for C, D, E and H every
 path; the bench's, its lc_query store and every shape e2e_loop launched,
 are held in its phase) against its plain versions and timed at the last,
 one JSON line of
-the plain-torch work with a bound (TSDF integration, the ESDF sweep, an LM
-iteration of the distributed BA), one JSON line of the graph steps' rows,
-one JSON line of kernel records (the KLT
-kernel, the RANSAC and PnP kernels, local BA's two kernels, the
-undistortion, tail, filter and CLAHE kernels, and the scorer), the card's
+the plain-torch work with a bound (an LM iteration of the distributed
+BA), one JSON line of the graph steps' rows, one JSON line of kernel
+records (the KLT kernel, the RANSAC and PnP kernels, local BA's two
+kernels, the undistortion, tail, filter and CLAHE kernels, the TSDF
+integration and ESDF sweep kernels, and the scorer), the card's
 name
 and power limit, and the final ``{"ok": true, "device": ...}`` line.
 
@@ -544,6 +557,27 @@ def time_cuda(fn, runs: int):
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def time_after_idle(fn, idle_s: float = 0.1, runs: int = 5):
+    """Median ms of ``runs`` calls of ``fn`` (CUDA events around each), each
+    issued after the card has had nothing to do for ``idle_s`` seconds, as
+    slice G's integrations are (its render is the host's work)."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        time.sleep(idle_s)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -1478,6 +1512,342 @@ def slice_g_cpu_agreement(card_vol, frames, dev):
     return int(differ.sum()), updated, err
 
 
+# the [tsdf] check: an odd grid (a multiple of no tile) seen by a small
+# camera whose principal point sits on pixel boundaries (k + 0.5), its
+# depth holding NaN, +-inf and values outside [min_ray, max_ray]; and the
+# option sets (colour, use_const_weight) each kernel case runs
+TSDF_ODD_DIMS = (37, 29, 23)
+# a ragged grid whose nz is a multiple of 4 (the sweep's float4 kernel)
+TSDF_QUAD_DIMS = (37, 29, 24)
+TSDF_ODD_IMAGE = (64, 48)         # W, H
+TSDF_OPTIONS = ((True, False), (True, True), (False, False), (False, True))
+TSDF_SWEEPS_NAN = 3               # the sweep case with NaN voxels
+
+
+def reset_tsdf_counts() -> None:
+    """Zeroes the TSDF kernels' wrapper counters and the plain versions'
+    calls on CUDA tensors."""
+    from ov2slam_torch.mapping import tsdf
+
+    for fn in (tsdf._tsdf_integrate, tsdf._esdf_sweep):
+        fn.launches = 0
+        fn.shapes.clear()
+        fn.origins.clear()
+    tsdf._tsdf_integrate_plain.cuda_runs = 0
+    tsdf._esdf_sweep_plain.cuda_runs = 0
+
+
+def tsdf_counts():
+    """The counters :func:`reset_tsdf_counts` zeroes."""
+    from ov2slam_torch.mapping import tsdf
+
+    return dict(integrate_launches=tsdf._tsdf_integrate.launches,
+                sweep_launches=tsdf._esdf_sweep.launches,
+                integrate_plain_runs_on_cuda=(
+                    tsdf._tsdf_integrate_plain.cuda_runs),
+                sweep_plain_runs_on_cuda=tsdf._esdf_sweep_plain.cuda_runs)
+
+
+def tsdf_odd_case(dev, seed: int = 0):
+    """The odd grid's inputs on ``dev``: a state seen before (half its
+    voxels with weights and colours), three poses looking into it, and
+    per pose a depth image (NaN, +inf, -inf, below min_ray and above
+    max_ray on a share of pixels each) and a colour image; the camera's
+    principal point at (W/2 + 0.5, H/2 + 0.5). Returns a dict of the
+    integration's arguments (``state``, ``frames`` as (depth, rgb, T_cw),
+    ``K``, ``origin``, ``params``) and ``dims``."""
+    import numpy as np
+    import torch
+
+    from ov2slam_torch.utils import lie_np
+
+    rng = np.random.default_rng(seed)
+    W, H = TSDF_ODD_IMAGE
+    nx, ny, nz = TSDF_ODD_DIMS
+    V = nx * ny * nz
+    seen = rng.random(V) < 0.5
+    state = (np.where(seen, rng.uniform(-1, 1, V), 1.0).astype(np.float32),
+             (rng.uniform(0, 4.9, V) * seen).astype(np.float32),
+             (rng.uniform(0, 255, (V, 3)) * seen[:, None]).astype(
+                 np.float32))
+    K = np.array([[50.0, 0, W / 2 + 0.5], [0, 50.0, H / 2 + 0.5],
+                  [0, 0, 1]])
+    frames = []
+    for k in range(3):
+        depth = rng.uniform(0.6, 3.5, (H, W)).astype(np.float32)
+        for value, share in ((np.nan, 0.05), (np.inf, 0.03),
+                             (-np.inf, 0.03), (0.2, 0.05), (12.0, 0.05)):
+            depth[rng.random((H, W)) < share] = value
+        rgb = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+        q = np.concatenate([[1.0], rng.normal(0, 0.08, 3)])
+        T_wc = np.concatenate([q / np.linalg.norm(q),
+                               [0.1 * k, -0.05 * k, 0.0]])
+        T_cw = np.asarray(lie_np.pose_inverse(T_wc), np.float32)
+        frames.append((torch.as_tensor(depth, device=dev),
+                       torch.as_tensor(rgb, device=dev), T_cw))
+    return dict(state=tuple(torch.as_tensor(a, device=dev) for a in state),
+                frames=frames, K=K, origin=np.array([-1.8, -1.4, 0.1],
+                                                    np.float32),
+                params=dict(voxel=0.1, trunc=0.3, min_ray=0.5, max_ray=10.0,
+                            max_weight=5.0), dims=TSDF_ODD_DIMS)
+
+
+def _tsdf_same(a, b):
+    """Bits equal (f32 as int32), NaNs compared by position."""
+    return bool(((_bits(a) == _bits(b)) | (a.isnan() & b.isnan())).all())
+
+
+def _tsdf_err(a, b) -> float:
+    """The largest |a - b| where neither is NaN."""
+    both = ~(a.isnan() | b.isnan())
+    d = (a - b).abs()[both]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def tsdf_integrate_check(label, case, errs):
+    """Runs ``case``'s integrations through the kernel and through the
+    plain version on copies of its state, in each option set of
+    ``TSDF_OPTIONS``; fails unless tsdf, weight and colour are bit-equal
+    after every integration (NaNs equal in position). Keeps the largest
+    |kernel - plain| in ``errs["tsdf_integrate"]``; returns the outputs
+    held and the NaN voxels of the last state."""
+    import torch
+
+    from ov2slam_torch.mapping import tsdf
+
+    K, p = case["K"], case["params"]
+    held = nan = 0
+    for color, const in TSDF_OPTIONS:
+        runs = []
+        for fn in (tsdf._tsdf_integrate, tsdf._tsdf_integrate_plain):
+            st = [x.clone() for x in case["state"]]
+            if not color:
+                st[2] = None
+            runs.append((fn, st))
+        for n, (depth, rgb, T_cw) in enumerate(case["frames"]):
+            for fn, st in runs:
+                fn(*st, depth, rgb if color else None, T_cw, K[0, 0],
+                   K[1, 1], K[0, 2], K[1, 2], case["origin"], p["voxel"],
+                   p["trunc"], p["min_ray"], p["max_ray"], p["max_weight"],
+                   dims=case["dims"], use_const_weight=const)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("tsdf", "weight", "color"), runs[0][1],
+                                  runs[1][1]):
+                if a is None:
+                    continue
+                if not _tsdf_same(a, b):
+                    fail(f"tsdf {label} (colour {color}, const weight "
+                         f"{const}), integration {n}: {name} not bit-equal "
+                         f"to the plain version ({_tsdf_err(a, b):.3e})")
+                errs["tsdf_integrate"] = max(errs.get("tsdf_integrate", 0.0),
+                                             _tsdf_err(a, b))
+                held += 1
+        nan = int(runs[0][1][0].isnan().sum())
+        del runs
+    return held, nan
+
+
+def tsdf_sweep_check(label, d0, voxel, n_iters, errs):
+    """``n_iters`` sweeps of ``d0`` through the kernel and the plain version;
+    fails unless bit-equal (NaNs equal in position) and unless ``d0`` is
+    left as it was. Returns the NaN voxels of the result."""
+    import torch
+
+    from ov2slam_torch.mapping import tsdf
+
+    before = d0.clone()
+    a = tsdf._esdf_sweep(d0, voxel, n_iters)
+    b = tsdf._esdf_sweep_plain(d0, voxel, n_iters)
+    torch.cuda.synchronize()
+    if not _tsdf_same(a, b):
+        fail(f"tsdf {label}: {n_iters} sweeps not bit-equal to the plain "
+             f"version ({_tsdf_err(a, b):.3e})")
+    if not _tsdf_same(d0, before):
+        fail(f"tsdf {label}: the sweep wrapper changed its input")
+    errs["esdf_sweep"] = max(errs.get("esdf_sweep", 0.0), _tsdf_err(a, b))
+    return int(a.isnan().sum())
+
+
+def tsdf_odd_check(dev, errs):
+    """The odd grid's cases: the integrations in every option set, then 50
+    sweeps of an occupancy grid (2% of voxels) on the odd grid and on
+    ``TSDF_QUAD_DIMS`` (the float4 sweep kernel's ragged tiles), and
+    ``TSDF_SWEEPS_NAN`` sweeps of each holding two NaN voxels. Returns
+    (outputs held, NaN voxels after the integrations, NaN voxels after
+    the NaN sweeps)."""
+    import numpy as np
+    import torch
+
+    case = tsdf_odd_case(dev)
+    held, nan = tsdf_integrate_check("odd grid", case, errs)
+    rng = np.random.default_rng(1)
+    sweep_nan = 0
+    for dims in (TSDF_ODD_DIMS, TSDF_QUAD_DIMS):
+        occ = rng.random(dims) < 0.02
+        d0 = torch.as_tensor(np.where(occ, 0.0, 1e9).astype(np.float32),
+                             device=dev)
+        tsdf_sweep_check(f"grid {dims}", d0, 0.1, 50, errs)
+        d0[1, 2, 3] = d0[-1, -1, -1] = float("nan")
+        sweep_nan += tsdf_sweep_check(f"grid {dims}, NaN voxels", d0, 0.1,
+                                      TSDF_SWEEPS_NAN, errs)
+    return held + 4, nan, sweep_nan
+
+
+def tsdf_kernels_per_call(fn):
+    """CUDA kernels one call of ``fn`` starts: torch's from a
+    torch.profiler trace, plus the TSDF kernels' launches from their
+    wrappers' counters (a trace may lack a ctypes launch's device event)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ov2slam_torch.mapping import tsdf
+
+    fn()
+    torch.cuda.synchronize()
+    n0 = tsdf._tsdf_integrate.launches + tsdf._esdf_sweep.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hand = tsdf._tsdf_integrate.launches + tsdf._esdf_sweep.launches - n0
+    others = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and "tsdf_integrate_kernel" not in e.name
+              and "esdf_sweep" not in e.name]
+    return len(others) + hand
+
+
+def phase_tsdf(vol, frames, dev):
+    """The [tsdf] check after slice G's main path: both kernels against
+    their plain versions on the card, bit for bit (NaNs by position), on
+    copies of slice G's fused grid over the first rig step's six
+    integrations in every option set, on the odd grid, and 50 sweeps of
+    slice G's occupancy and of the odd grid's; then each kernel timed at
+    slice G's size (ms, device ms, ms after the card idled 0.1 s as it
+    does between slice G's integrations, plain ms, kernels a call, bound)
+    and the device memory one integration adds, kernel and plain."""
+    import torch
+
+    from ov2slam_torch import roofline
+    from ov2slam_torch.mapping import tsdf
+
+    g = SLICE_G
+    K = rig_intrinsics()
+    errs = {}
+    case = dict(state=(vol.tsdf, vol.weight, vol.color), K=K,
+                origin=vol.origin, dims=vol.dims,
+                frames=[(d, c, lie_np_inverse32(T)) for d, c, T in frames],
+                params=dict(voxel=g["voxel"], trunc=g["trunc"],
+                            min_ray=g["min_ray"], max_ray=g["max_ray"],
+                            max_weight=vol.max_weight))
+    held, _ = tsdf_integrate_check("slice G grid", case, errs)
+    n_sweeps = int(round(g["esdf_max"] / g["voxel"]))
+    d0 = vol._occupancy(1e-4)
+    tsdf_sweep_check("slice G occupancy", d0, g["voxel"], n_sweeps, errs)
+    odd_held, odd_nan, sweep_nan = tsdf_odd_check(dev, errs)
+    if odd_nan == 0 or sweep_nan == 0:
+        fail(f"tsdf odd grid: the NaN cases made no NaN voxel ({odd_nan}, "
+             f"{sweep_nan})")
+    held += 1 + odd_held
+
+    # timing at slice G's size, on a copy of its grid: frame 0, slice G's
+    # options (colour, 1/z^2 weights)
+    depth, rgb, T_cw = case["frames"][0]
+    st = [x.clone() for x in case["state"]]
+    args = (depth, rgb, T_cw, K[0, 0], K[1, 1], K[0, 2], K[1, 2],
+            vol.origin, g["voxel"], g["trunc"], g["min_ray"], g["max_ray"],
+            vol.max_weight)
+    kw = dict(dims=vol.dims, use_const_weight=False)
+    run = lambda: tsdf._tsdf_integrate(*st, *args, **kw)      # noqa: E731
+    plain = lambda: tsdf._tsdf_integrate_plain(*st, *args, **kw)  # noqa
+    torch.cuda.synchronize()
+    mem = []
+    for fn in (run, plain):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        mem.append(torch.cuda.max_memory_allocated() - base)
+    H, W = depth.shape
+    integrate = dict(
+        ms=time_cuda(run, 20), device_ms=time_cuda_queued(run, 20),
+        ms_after_idle=time_after_idle(run), plain_ms=time_cuda(plain, 3),
+        kernels_per_call=tsdf_kernels_per_call(run),
+        plain_kernels_per_call=kernel_launches_per_call(plain)[0],
+        added_bytes=mem[0], plain_added_bytes=mem[1],
+        **roofline.tsdf_integrate_bound(vol.tsdf.numel(), H, W))
+    del st
+    sweeps = lambda: tsdf._esdf_sweep(d0, g["voxel"], n_sweeps)  # noqa
+    sweeps_plain = lambda: tsdf._esdf_sweep_plain(  # noqa: E731
+        d0, g["voxel"], n_sweeps)
+    sweep = dict(
+        ms=time_cuda(sweeps, 5) / n_sweeps,
+        device_ms=time_cuda_queued(sweeps, 5) / n_sweeps,
+        ms_after_idle=time_after_idle(sweeps) / n_sweeps,
+        plain_ms=time_cuda(sweeps_plain, 3) / n_sweeps,
+        kernels_per_call=tsdf_kernels_per_call(
+            lambda: tsdf._esdf_sweep(d0, g["voxel"], 1)),
+        plain_kernels_per_call=kernel_launches_per_call(
+            lambda: tsdf._esdf_sweep_plain(d0, g["voxel"], 1))[0],
+        sweeps_per_esdf=n_sweeps,
+        **roofline.esdf_sweep_bound(vol.tsdf.numel()))
+    del d0
+    res = dict(outputs_held=held, max_abs_err=errs,
+               odd_nan_voxels=odd_nan, odd_sweep_nan_voxels=sweep_nan,
+               integrate=integrate, sweep=sweep)
+    print("[tsdf] " + json.dumps(res), flush=True)
+    print(f"[tsdf] {held} outputs bit-equal to the plain versions; "
+          f"integration {integrate['ms']:.4f} ms (device "
+          f"{integrate['device_ms']:.4f}, after idling "
+          f"{integrate['ms_after_idle']:.4f}, bound "
+          f"{integrate['bound_ms']:.4f}, plain {integrate['plain_ms']:.4f}),"
+          f" a sweep {sweep['ms']:.4f} "
+          f"ms (device {sweep['device_ms']:.4f}, bound "
+          f"{sweep['bound_ms']:.4f}, plain {sweep['plain_ms']:.4f})",
+          flush=True)
+    return res
+
+
+def tsdf_kernel_rows(g):
+    """The kernels line's records of the dense-fusion kernels from slice
+    G's figures: launches those of its main path (its 180 integrations and
+    its ESDF's sweeps), the rest at its size; ``ms`` of the integration the
+    median of slice G's calls, of a sweep its ESDF's sweeps timed together,
+    per sweep."""
+    tg = g["tsdf"]
+    rows = []
+    for name, part, launches, ms, replaces in (
+            ("tsdf_integrate", "integrate",
+             g["tsdf_counts"]["integrate_launches"],
+             g["integrate_ms_median"], "ov2slam_tpu/mapping/tsdf.py:33"),
+            ("esdf_sweep", "sweep", g["tsdf_counts"]["sweep_launches"],
+             tg["sweep"]["ms"], "ov2slam_tpu/mapping/tsdf.py:91")):
+        row = tg[part]
+        rows.append(dict(
+            name=name, route="cuda", source="ov2slam_torch/csrc/tsdf.cu",
+            replaces=replaces, launches=launches,
+            max_abs_err=tg["max_abs_err"][name], ms=ms,
+            device_ms=row["device_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None, kernels_per_call=row["kernels_per_call"],
+            plain_kernels_per_call=row["plain_kernels_per_call"],
+            launches_by_slice={"G": launches}, voxels=g["voxels"],
+            isolated_ms=row["ms"]))
+    return rows
+
+
+def lie_np_inverse32(T_wc):
+    """``T_wc``'s inverse as the f32 7-vector ``TsdfVolume.integrate``
+    hands the integration."""
+    import numpy as np
+
+    from ov2slam_torch.utils import lie_np
+
+    return np.asarray(lie_np.pose_inverse(np.asarray(T_wc, np.float64)),
+                      np.float32)
+
+
 def run_slice_g(dev):
     """Slice G (see the module docstring); returns its figures."""
     import tempfile
@@ -1496,6 +1866,7 @@ def run_slice_g(dev):
                       for x in (vol.tsdf, vol.weight, vol.color))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_tsdf_counts()
     # each frame is rendered on the card just before it is fused; the
     # events time the integration alone
     ms, first = [], []
@@ -1509,48 +1880,51 @@ def run_slice_g(dev):
         e.record()
         ms.append((s, e))
         if len(first) < g["n_cams"]:
-            first.append((depth.cpu(), rgb.cpu(), T_wc))
+            first.append((depth, rgb, T_wc))
         if vol.n_integrated == g["n_cams"]:
-            n_differ, n_updated, err = slice_g_cpu_agreement(vol, first,
-                                                             dev)
+            n_differ, n_updated, err = slice_g_cpu_agreement(
+                vol, [(d.cpu(), c.cpu(), T) for d, c, T in first], dev)
     torch.cuda.synchronize()
     loop_s = time.perf_counter() - t0
     ms = sorted(s.elapsed_time(e) for s, e in ms)
     peak = torch.cuda.max_memory_allocated()
-    del first
-
-    # kernels per integration and per sweep: the same calls on an 8^3 grid
-    # (the sequence of launches does not depend on the grid's size)
-    small = ttsdf.TsdfVolume(origin=g["origin"], dims=(8, 8, 8),
-                             device=dev)
-    k_int, _, _ = kernel_launches_per_call(
-        lambda: small.integrate(depth, K, poses[0], rgb=rgb))
-    d_small = torch.zeros((8, 8, 8), device=dev)
-    k_esdf, _, _ = kernel_launches_per_call(
-        lambda: ttsdf._esdf_sweep(d_small, g["voxel"], 1))
-    del small, d_small
-
-    # the ESDF's sweeps alone, on the device (occupancy grid from the host)
-    t, obs = vol._grids(1e-4)
-    d0 = torch.as_tensor(((t < 0) & obs).astype("float32"), device=dev)
-    d0 = torch.where(d0 > 0, 0.0, 1e9)
-    n_sweeps = int(round(g["esdf_max"] / g["voxel"]))
-    esdf_ms = time_cuda(lambda: ttsdf._esdf_sweep(d0, g["voxel"], n_sweeps),
-                        3) / n_sweeps
-    del d0, t, obs, depth, rgb
+    counts = tsdf_counts()
+    # the slice's host queries, its ESDF's sweeps on the card
     with tempfile.TemporaryDirectory() as tmp:
         figs = slice_g_figures(vol, scene, tmp)
-    bound = 1e3 * 40 * V / HBM_BYTES_PER_S
-    esdf_bound = 1e3 * 8 * V / HBM_BYTES_PER_S
+    torch.cuda.synchronize()
+    after = tsdf_counts()
+    n_sweeps = int(round(g["esdf_max"] / g["voxel"]))
+    counts.update(sweep_launches=after["sweep_launches"],
+                  sweep_plain_runs_on_cuda=after["sweep_plain_runs_on_cuda"])
+    print("[slice G] tsdf kernels " + json.dumps(counts), flush=True)
+    if counts["integrate_launches"] != len(poses):
+        fail(f"slice G: {counts['integrate_launches']} integration kernel "
+             f"launches for {len(poses)} integrations")
+    if counts["sweep_launches"] != n_sweeps:
+        fail(f"slice G: {counts['sweep_launches']} sweep kernel launches "
+             f"for an ESDF of {n_sweeps} sweeps")
+    if counts["integrate_plain_runs_on_cuda"] or \
+            counts["sweep_plain_runs_on_cuda"]:
+        fail(f"slice G: a plain TSDF function ran on the card: {counts}")
+    if after["integrate_launches"] != counts["integrate_launches"]:
+        fail("slice G: the host queries launched an integration")
+
+    tsdf = phase_tsdf(vol, first, dev)
+    del first, depth, rgb
+    bound = tsdf["integrate"]["bound_ms"]
+    esdf_bound = tsdf["sweep"]["bound_ms"]
     res = dict(
         slice="G", voxels=V, dims=list(g["dims"]), state_bytes=state_bytes,
         integrations=vol.n_integrated, boxes=len(scene["box_lo"]),
         render_and_fuse_s=loop_s, integrate_ms_median=ms[len(ms) // 2],
         integrate_ms_min=ms[0], integrate_ms_max=ms[-1],
-        integrate_kernels=k_int, integrate_bound_ms=bound,
-        esdf_sweep_ms=esdf_ms, esdf_sweep_kernels=k_esdf,
+        integrate_kernels=tsdf["integrate"]["kernels_per_call"],
+        integrate_bound_ms=bound,
+        esdf_sweep_ms=tsdf["sweep"]["ms"],
+        esdf_sweep_kernels=tsdf["sweep"]["kernels_per_call"],
         esdf_sweep_bound_ms=esdf_bound, esdf_sweeps=n_sweeps,
-        max_memory_allocated=peak,
+        max_memory_allocated=peak, tsdf_counts=counts,
         cpu_check=dict(integrations=g["n_cams"], updated_voxels=n_updated,
                        pixel_differs=n_differ,
                        pixel_differs_share=n_differ / max(n_updated, 1),
@@ -1567,7 +1941,8 @@ def run_slice_g(dev):
     print(f"[slice G] {V} voxels ({state_bytes} B of state), "
           f"{vol.n_integrated} integrations: {res['integrate_ms_median']:.4f}"
           f" ms each (median; bound {bound:.4f} ms at 40 B/voxel), ESDF "
-          f"{esdf_ms:.4f} ms per sweep (bound {esdf_bound:.4f} ms), peak "
+          f"{res['esdf_sweep_ms']:.4f} ms per sweep (bound "
+          f"{esdf_bound:.4f} ms), peak "
           f"device memory {peak} B, mesh {figs['mesh_host_s']:.2f} s on the "
           f"host | JAX package (reference_runs.py G, CPU): "
           f"{j['surface_points']} surface points (max "
@@ -1577,6 +1952,7 @@ def run_slice_g(dev):
           f"{figs['surface_points']} ({figs['surface_max_err_voxels']:.4f})"
           f", {figs['mesh_faces']} ({figs['mesh_max_err_voxels']:.4f}), "
           f"{figs['occupied_voxels']}", flush=True)
+    res["tsdf"] = tsdf
     return res
 
 
@@ -5029,8 +5405,9 @@ def main() -> int:
                                              else ""): r[key]
                                for r in slices},
             bench_launches=bn["image"][key], paths=image_rows[name]))
+    tsdf_line = tsdf_kernel_rows(g)
     kernels_line = {"kernels": [klt_line, *pose_line, *ba_line,
-                                *image_line, dict(
+                                *image_line, *tsdf_line, dict(
         name="hamming_score", route="cuda",
         source="ov2slam_torch/csrc/hamming_score.cu",
         replaces="ov2slam_tpu/ops/pallas_hamming.py:57",
@@ -5042,16 +5419,6 @@ def main() -> int:
     # plain-torch work on the main paths, with its bound: candidates for
     # hand kernels (no kernel of the repo's own stands behind them)
     plain = {"plain_torch": [
-        dict(name="tsdf_integrate", source="ov2slam_torch/mapping/tsdf.py",
-             ms=g["integrate_ms_median"], calls=g["integrations"],
-             kernels_per_call=g["integrate_kernels"],
-             bound_ms=g["integrate_bound_ms"], bound_by="bytes",
-             voxels=g["voxels"]),
-        dict(name="esdf_sweep", source="ov2slam_torch/mapping/tsdf.py",
-             ms=g["esdf_sweep_ms"], calls=g["esdf_sweeps"],
-             kernels_per_call=g["esdf_sweep_kernels"],
-             bound_ms=g["esdf_sweep_bound_ms"], bound_by="bytes",
-             voxels=g["voxels"]),
         dict(name="dist_ba_iteration",
              source="ov2slam_torch/parallel/dist_ba.py",
              ms=i8["ms_per_iter"], calls=sum(

@@ -79,6 +79,11 @@ _SIGNATURES = {
     "clahe": ("clahe_launch", _C.c_int,
               [_C.c_void_p, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
                _C.c_int, _C.c_float, _C.c_int, _C.c_void_p, _C.c_void_p]),
+    # the state and the images, the sizes, the pose, intrinsics, origin,
+    # voxel and the plain version's f32 constants, the weight mode
+    "tsdf": ("tsdf_integrate_launch", _C.c_int,
+             [*[_C.c_void_p] * 5, *[_C.c_int] * 5, *[_C.c_float] * 23,
+              _C.c_int, _C.c_void_p]),
 }
 KERNELS = tuple(_SIGNATURES)
 # a library's further launch functions, beside its first above
@@ -89,6 +94,11 @@ _EXTRA_SIGNATURES = {
                        _C.c_void_p, _C.c_void_p, _C.c_int, _C.c_void_p,
                        _C.c_int, *[_C.c_void_p] * 9, _C.c_int, _C.c_int,
                        *[_C.c_void_p] * 6]),
+    },
+    "tsdf": {
+        "esdf_sweep_launch": (
+            _C.c_int, [_C.c_void_p, _C.c_void_p, _C.c_int, _C.c_int,
+                       _C.c_int, _C.c_float, _C.c_float, _C.c_void_p]),
     },
     "separable_filter": {
         "separable_pyramid_launch": (

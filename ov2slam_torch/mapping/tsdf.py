@@ -8,9 +8,16 @@ Integration is projective (KinectFusion-style): every voxel of a fixed
 dense grid is projected into the depth image and updated in one
 elementwise + gather pass. The grid (``tsdf`` (V,), ``weight`` (V,),
 ``color`` (V, 3), f32) lives on the device and is updated in place; the
-ESDF is a chamfer sweep of 6-neighbour min-plus updates on the device.
-Meshing (naive surface nets), surface points, PLY export and the ESDF's
-occupancy grid run on the host in numpy, as in the JAX package.
+ESDF is a chamfer sweep of 6-neighbour min-plus updates on the device,
+from an occupancy grid built there. Meshing (naive surface nets), surface
+points and PLY export run on the host in numpy, as in the JAX package.
+
+On the card both run as hand kernels (``csrc/tsdf.cu``:
+``tsdf_integrate_launch``, one launch an integration;
+``esdf_sweep_launch``, one launch a sweep), bit-equal to the plain
+versions (``_tsdf_integrate_plain``, ``_esdf_sweep_plain``), which CPU
+tensors take. Each wrapper counts its launches (``.launches``, ``.shapes``,
+``.origins``); each plain version its runs on the card (``.cuda_runs``).
 
 Both packages project the same points: voxel centres are ``origin + (idx
 + 0.5) * voxel`` in f32 in the grid's C order, and the camera transform is
@@ -20,14 +27,17 @@ temporary is made for it.
 
 from __future__ import annotations
 
+import collections
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops import launch
+from ..ops.launch import check, device_of, number
 from ..utils import lie_np
 
 
@@ -78,10 +88,12 @@ def _voxel_pixels(dims, origin, voxel, T_cw, fx, fy, cx, cy, hw, device):
     return pix, in_img, z
 
 
-def _tsdf_integrate(tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx, cy,
-                    origin, voxel, trunc, min_ray, max_ray, max_weight,
-                    dims: Tuple[int, int, int], use_const_weight: bool):
-    """One projective TSDF update over the whole grid, in place.
+def _tsdf_integrate_plain(tsdf, weight, color, depth, rgb, T_cw, fx, fy,
+                          cx, cy, origin, voxel, trunc, min_ray, max_ray,
+                          max_weight, dims: Tuple[int, int, int],
+                          use_const_weight: bool):
+    """One projective TSDF update over the whole grid, in place, in plain
+    PyTorch (the CPU's path, and what the kernel is held to on the card).
 
     tsdf:   (V,) signed distance in truncation units, in [-1, 1]
     weight: (V,) accumulated observation weight
@@ -92,6 +104,8 @@ def _tsdf_integrate(tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx, cy,
     The new tsdf and colour are averaged with the *old* weight; the stored
     weight is clamped to ``max_weight`` only after that.
     """
+    if tsdf.is_cuda:
+        _tsdf_integrate_plain.cuda_runs += 1
     pix, in_img, z = _voxel_pixels(dims, origin, voxel, T_cw, fx, fy, cx,
                                    cy, depth.shape, tsdf.device)
     d = depth.reshape(-1)[pix]
@@ -125,11 +139,15 @@ def _tsdf_integrate(tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx, cy,
     return tsdf, weight, color
 
 
-def _esdf_sweep(occ_dist, voxel, n_iters: int):
+def _esdf_sweep_plain(occ_dist, voxel, n_iters: int):
     """Chamfer distance transform: n_iters of 6-neighbor min-plus updates
     (each iteration propagates distance one voxel outward). Each iteration
     takes its six minimums against the start-of-iteration grid, padded
-    once with 1e9 (a Jacobi step, as the JAX package's ``lax.scan``)."""
+    once with 1e9 (a Jacobi step, as the JAX package's ``lax.scan``).
+    Plain PyTorch (the CPU's path, and what the kernel is held to on the
+    card); returns a new grid."""
+    if occ_dist.is_cuda:
+        _esdf_sweep_plain.cuda_runs += 1
     vox = _f32(voxel)
     d = occ_dist.clone()
     for _ in range(n_iters):
@@ -142,6 +160,207 @@ def _esdf_sweep(occ_dist, voxel, n_iters: int):
                    p[1:-1, 1:-1, :-2], p[1:-1, 1:-1, 2:]):
             torch.minimum(d, nb, out=d)
     return d
+
+
+# calls on CUDA tensors (the card runs the kernels instead)
+_tsdf_integrate_plain.cuda_runs = 0
+_esdf_sweep_plain.cuda_runs = 0
+
+# the largest grid the kernels index (int32 voxel offsets), and the plain
+# version's constants they take as f32 arguments
+MAX_VOXELS = 1 << 31
+Z_MIN, MIN_DEPTH, MIN_DENOM, ESDF_PAD = 1e-6, 1e-3, 1e-9, 1e9
+# the sweep kernels' smallest tile in y and shortest run of x planes
+# (csrc/tsdf.cu), and CUDA's grid limit in y and z: the largest ny and nx
+# a launch covers
+SWEEP_TILE_Y, SWEEP_RUN_X, GRID_YZ = 8, 2, 65535
+
+
+class IntegrateLaunch(NamedTuple):
+    """The arguments of ``tsdf_integrate_launch`` but the stream: device
+    pointers (color and rgb 0 together: no colour update), the sizes, and
+    the f32 values the plain version computes with."""
+    tsdf: int
+    weight: int
+    color: int
+    depth: int
+    rgb: int
+    nx: int
+    ny: int
+    nz: int
+    H: int
+    W: int
+    qw: float
+    qx: float
+    qy: float
+    qz: float
+    tx: float
+    ty: float
+    tz: float
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    ox: float
+    oy: float
+    oz: float
+    voxel: float
+    z_min: float
+    inv_trunc: float
+    neg_trunc: float
+    min_ray: float
+    max_ray: float
+    min_depth: float
+    min_denom: float
+    max_weight: float
+    const_weight: int
+
+
+def _dims(fn: str, dims) -> Tuple[int, int, int]:
+    if len(dims) != 3 or any(not isinstance(n, (int, np.integer)) or n < 1
+                             for n in dims):
+        raise ValueError(f"{fn}: dims must be three positive ints, not "
+                         f"{dims}")
+    dims = tuple(int(n) for n in dims)
+    if dims[0] * dims[1] * dims[2] >= MAX_VOXELS:
+        raise ValueError(f"{fn}: {dims} holds 2^31 voxels or more; the "
+                         "kernel indexes fewer")
+    return dims
+
+
+def _host_floats(fn: str, name: str, x, n: int) -> np.ndarray:
+    """``x`` (n host numbers) as f32; a tensor is refused (reading one
+    would wait for the device)."""
+    if isinstance(x, torch.Tensor):
+        raise TypeError(f"{fn}: {name} must be host values, not a tensor")
+    a = np.asarray(x, np.float32).reshape(-1)
+    if a.shape != (n,):
+        raise ValueError(f"{fn}: {name} must hold {n} values")
+    return a
+
+
+def pack_integrate(tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx, cy,
+                   origin, voxel, trunc, min_ray, max_ray, max_weight,
+                   dims, use_const_weight: bool) -> IntegrateLaunch:
+    """Checks one launch of ``tsdf_integrate_launch`` and packs its
+    arguments (as :func:`_tsdf_integrate` takes them); raises on what the
+    kernel does not take: TypeError on a dtype (f32 only) or a tensor
+    where host numbers go, ValueError on another device, a tensor that is
+    not contiguous, shapes that do not match the grid or the image, or a
+    grid of 2^31 voxels or more. The f32 constants are the plain version's
+    on the card: ``sdf / trunc`` is ATen's product with ``1 / trunc``
+    formed in f32 for a CPU-scalar divisor; the clamps' and comparisons'
+    Python numbers rounded to f32."""
+    fn = "tsdf_integrate"
+    nx, ny, nz = _dims(fn, dims)
+    V = nx * ny * nz
+    dev = device_of(tsdf, fn)
+    check(fn, "tsdf", tsdf, torch.float32, dev, shape=(V,))
+    check(fn, "weight", weight, torch.float32, dev, shape=(V,))
+    if depth.dim() != 2:
+        raise ValueError(f"{fn}: depth must be (H, W), not "
+                         f"{tuple(depth.shape)}")
+    H, W = depth.shape
+    if H * W >= MAX_VOXELS:
+        raise ValueError(f"{fn}: a {H}x{W} image is above what the kernel "
+                         "indexes")
+    check(fn, "depth", depth, torch.float32, dev)
+    with_color = color is not None and rgb is not None
+    if with_color:
+        check(fn, "color", color, torch.float32, dev, shape=(V, 3))
+        check(fn, "rgb", rgb, torch.float32, dev, shape=(H, W, 3))
+    q = _host_floats(fn, "T_cw", T_cw, 7)
+    o = _host_floats(fn, "origin", origin, 3)
+    f32 = np.float32
+    trunc32 = f32(number(fn, "trunc", trunc))
+    return IntegrateLaunch(
+        tsdf.data_ptr(), weight.data_ptr(),
+        color.data_ptr() if with_color else 0, depth.data_ptr(),
+        rgb.data_ptr() if with_color else 0, nx, ny, nz, H, W,
+        *(float(v) for v in q),
+        *(_f32(number(fn, n, v)) for n, v in (("fx", fx), ("fy", fy),
+                                               ("cx", cx), ("cy", cy))),
+        *(float(v) for v in o), _f32(number(fn, "voxel", voxel)),
+        _f32(Z_MIN), float(f32(1.0) / trunc32), float(-trunc32),
+        _f32(number(fn, "min_ray", min_ray)),
+        _f32(number(fn, "max_ray", max_ray)), _f32(MIN_DEPTH),
+        _f32(MIN_DENOM), _f32(number(fn, "max_weight", max_weight)),
+        int(bool(use_const_weight)))
+
+
+def _tsdf_integrate(tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx, cy,
+                    origin, voxel, trunc, min_ray, max_ray, max_weight,
+                    dims: Tuple[int, int, int], use_const_weight: bool):
+    """One projective TSDF update over the whole grid, in place (see
+    :func:`_tsdf_integrate_plain`). CPU tensors take the plain version;
+    CUDA tensors one launch of ``csrc/tsdf.cu``'s integration kernel on
+    the current stream, bit-equal to the plain version there."""
+    if device_of(tsdf, "tsdf_integrate").type == "cpu":
+        return _tsdf_integrate_plain(
+            tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx, cy, origin,
+            voxel, trunc, min_ray, max_ray, max_weight, dims,
+            use_const_weight)
+    a = pack_integrate(tsdf, weight, color, depth, rgb, T_cw, fx, fy, cx,
+                       cy, origin, voxel, trunc, min_ray, max_ray,
+                       max_weight, dims, use_const_weight)
+    launch.run("tsdf", a, _tsdf_integrate,
+               (a.nx, a.ny, a.nz, a.H, a.W, a.color != 0, a.const_weight),
+               tsdf.device)
+    return tsdf, weight, color
+
+
+_tsdf_integrate.launches = 0
+_tsdf_integrate.shapes = collections.Counter()
+_tsdf_integrate.origins = collections.Counter()
+
+
+def pack_sweep(occ_dist, voxel, n_iters: int):
+    """Checks the sweeps of ``esdf_sweep_launch`` on ``occ_dist``; returns
+    (dims, voxel in f32, the padding value in f32). Raises TypeError on a
+    dtype (f32 only), ValueError on a grid that is not 3-D and contiguous,
+    of 2^31 voxels or more, or beyond the launch grid's reach, or on a
+    negative sweep count."""
+    fn = "esdf_sweep"
+    dev = device_of(occ_dist, fn)
+    if occ_dist.dim() != 3:
+        raise ValueError(f"{fn}: the grid must be (nx, ny, nz), not "
+                         f"{tuple(occ_dist.shape)}")
+    dims = _dims(fn, tuple(occ_dist.shape))
+    check(fn, "grid", occ_dist, torch.float32, dev)
+    if dims[0] > SWEEP_RUN_X * GRID_YZ or dims[1] > SWEEP_TILE_Y * GRID_YZ:
+        raise ValueError(f"{fn}: {dims} is beyond one launch's grid")
+    if not isinstance(n_iters, (int, np.integer)) or n_iters < 0:
+        raise ValueError(f"{fn}: n_iters {n_iters}")
+    return dims, _f32(number(fn, "voxel", voxel)), _f32(ESDF_PAD)
+
+
+def _esdf_sweep(occ_dist, voxel, n_iters: int):
+    """Chamfer distance transform (see :func:`_esdf_sweep_plain`); returns a
+    new grid and leaves ``occ_dist`` as it is. CPU tensors take the plain
+    version; CUDA tensors one launch of ``csrc/tsdf.cu``'s sweep kernel a
+    sweep, from one buffer into the other, bit-equal to the plain
+    version."""
+    if device_of(occ_dist, "esdf_sweep").type == "cpu":
+        return _esdf_sweep_plain(occ_dist, voxel, n_iters)
+    dims, vox, pad = pack_sweep(occ_dist, voxel, n_iters)
+    if n_iters == 0:
+        return occ_dist.clone()
+    bufs = [torch.empty_like(occ_dist)]
+    if n_iters > 1:
+        bufs.append(torch.empty_like(occ_dist))
+    src = occ_dist
+    for s in range(int(n_iters)):
+        dst = bufs[s % 2]
+        launch.run("tsdf", (src.data_ptr(), dst.data_ptr(), *dims, vox,
+                            pad), _esdf_sweep, dims, occ_dist.device,
+                   fn="esdf_sweep_launch")
+        src = dst
+    return src
+
+
+_esdf_sweep.launches = 0
+_esdf_sweep.shapes = collections.Counter()
+_esdf_sweep.origins = collections.Counter()
 
 
 @dataclass
@@ -214,6 +433,14 @@ class TsdfVolume:
         t = self.tsdf.cpu().numpy().reshape(self.dims)
         w = self.weight.cpu().numpy().reshape(self.dims)
         return t, w >= min_weight
+
+    def _occupancy(self, min_weight: float) -> torch.Tensor:
+        """The ESDF's start on the device, (nx, ny, nz) f32: 0 on occupied
+        voxels (tsdf < 0, weight >= min_weight in f32, as ``_grids``
+        compares), 1e9 elsewhere."""
+        occ = (self.tsdf < 0) & (self.weight >= _f32(min_weight))
+        return torch.full_like(self.tsdf, ESDF_PAD).masked_fill_(
+            occ, 0.0).view(self.dims)
 
     def voxel_centers(self) -> np.ndarray:
         nx, ny, nz = self.dims
@@ -338,12 +565,9 @@ class TsdfVolume:
         """Euclidean-ish (chamfer) distance field from the occupied set
         (tsdf < 0) — voxblox esdf_server equivalent with
         esdf_max_distance_m/esdf_default_distance_m = max_distance. The
-        occupancy grid is built on the host, the sweeps run on the
-        device."""
-        t, obs = self._grids(min_weight)
-        occ = (t < 0) & obs
-        d0 = torch.as_tensor(np.where(occ, 0.0, 1e9).astype(np.float32),
-                             device=self.device)
+        occupancy grid is built and swept on the device; only the field
+        comes back."""
+        d0 = self._occupancy(min_weight)
         n_iters = int(np.ceil(max_distance / self.voxel_size))
         d = _esdf_sweep(d0, self.voxel_size, n_iters).cpu().numpy()
         return np.minimum(d, max_distance).astype(np.float32)

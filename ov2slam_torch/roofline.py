@@ -416,3 +416,38 @@ def clahe_bound(H: int, W: int):
     ops = (padded * CLAHE_HIST_OPS + t * t * CLAHE_BINS * CLAHE_BIN_OPS
            + H * W * CLAHE_PIXEL_OPS)
     return _bound(ops, 8 * H * W)
+
+
+# a voxel's f32 operations in csrc/tsdf.cu's integration (compares, min,
+# max and selects one each): its centre 3 a coordinate; uv and uuv 3 each
+# a coordinate; pc 5 a coordinate; the front test and zs 2; u and v 3
+# each; their rounding and clamps 3 each; the image test 4; the depth's
+# tests 3; sdf and its test 2; the observation and its clamp 3; the 1/z^2
+# weight 4 (with const_weight none) and its select 1; w_new and the
+# denominator 2; the tsdf 4; the weight's clamp 1; the colour 4 a channel
+TSDF_VOXEL_OPS = 9 + 9 + 9 + 15 + 2 + 6 + 6 + 4 + 3 + 2 + 3 + 5 + 2 + 4 + 1
+TSDF_INV_DEPTH_OPS = 4
+TSDF_COLOR_OPS = 12
+# a voxel's sweep: six neighbours' additions and six minimums
+ESDF_VOXEL_OPS = 12
+
+
+def tsdf_integrate_bound(V: int, H: int, W: int, color: bool = True,
+                         const_weight: bool = False):
+    """The least time of one ``tsdf_integrate`` launch over ``V`` voxels
+    from an (H, W) depth image: the operations above; bytes of the tsdf
+    and weight (and colour) read and written once, 16 (40) a voxel, and
+    of the depth (and colour) image read once. Every voxel is written,
+    in the frustum or not (the plain version rewrites them all). Returns
+    ops, bytes, bound_ms, bound_by."""
+    ops = V * (TSDF_VOXEL_OPS - const_weight * TSDF_INV_DEPTH_OPS
+               + color * TSDF_COLOR_OPS)
+    return _bound(ops, V * (16 + 24 * color) + H * W * (4 + 12 * color))
+
+
+def esdf_sweep_bound(V: int, sweeps: int = 1):
+    """The least time of ``sweeps`` ESDF sweeps over ``V`` voxels, one
+    launch each: the grid read once and written once a sweep, 8 bytes a
+    voxel, and 12 operations a voxel. Returns ops, bytes, bound_ms,
+    bound_by."""
+    return _bound(sweeps * V * ESDF_VOXEL_OPS, sweeps * 8 * V)

@@ -185,6 +185,8 @@ HAND_KERNELS = {
                          "undistort_normalize_kernel"),
     "separable_filter": ("filter_kernel", "pyramid_kernel", "scharr_kernel"),
     "clahe": ("clahe_kernel",),
+    "tsdf": ("tsdf_integrate_kernel", "esdf_sweep_kernel",
+             "esdf_sweep4_kernel"),
 }
 # the wrappers that count each library's launches: (the module under
 # ov2slam_torch, its wrappers' names)
@@ -201,6 +203,7 @@ HAND_WRAPPERS = {
     "separable_filter": ("core.image", ("separable_filter", "build_pyramid",
                                         "scharr_gradients")),
     "clahe": ("core.image", ("clahe",)),
+    "tsdf": ("mapping.tsdf", ("_tsdf_integrate", "_esdf_sweep")),
 }
 
 
